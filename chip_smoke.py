@@ -20,10 +20,28 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    warm, then a batch with a duplicate; every assignment is checked, every
    cold winner is compared with the numpy evaluator's winner on the same
    candidate stack, and the kernel's launch count must have risen.
+4. ``attention`` — the flash-attention kernel against its plain-torch
+   version on the card: MHA, GQA 4:1 and MQA, ragged S (80; 4000), head
+   dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
+   layer (S=8192, window 4096, cap 50) and yi-6b's prefill (B=4, S=4000,
+   H=32, KH=4, D=128), float32 at 2e-5 and bfloat16 at 4e-3 + 8e-3·|o|
+   (two ulp); a second launch must be bit-identical; at yi-6b's shape the
+   kernel, the plain version, the bound and ``scaled_dot_product_attention``
+   are timed.
+5. ``model``   — yi-6b at full width and depth, random weights of seed 0
+   (``init_params``, block matrices widened to one layer's fan-in),
+   serves 4 prompts of 4000 tokens (numpy, seed 0) for 16 new tokens:
+   (a) float32: prefill + decode steps driven as ``ServeEngine.generate``
+   drives them give its tokens, and every served position's logits agree
+   with one plain full forward (``attn_impl="xla_flash"``) to 1e-4 of
+   their largest magnitude; (b) bfloat16, the config's dtype: the served
+   run, timed, with the kernel's launches (one per layer) and peak
+   memory, and the same comparison at 3e-2.
 
-With ``--profile`` a fourth line, ``profile``, gives the device time by
-kernel and copy name (``torch.profiler``) of one kernel launch at the largest
-shape and of one more cold request, with the device's idle share of it.
+With ``--profile`` two more ``profile`` lines give the device time by
+kernel and copy name (``torch.profiler``) with the device's idle share:
+of one mapscore launch at the largest shape and one more cold request,
+and of one bfloat16 prefill and one decode step of the served model.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -50,6 +68,24 @@ SCENARIOS = ("minighost-xk7_sparse-flat-wh",
 RTOL = ATOL = 1e-4          # float metrics, kernel vs plain / numpy
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
+# flash attention vs its plain version, (atol, rtol) per element.
+# float32: tests/test_kernels.py's.  bfloat16: both sides round one
+# float32 result, so they differ by an ulp where the two sums straddle a
+# rounding boundary: 1.95e-3 at most at every case (one ulp at
+# |o| in [0.25, 0.5); H100 run recorded in PERF.md).  atol is two such
+# ulp, rtol one ulp (2**-7) of larger outputs — against a typical |o|
+# of 0.03-0.05 at S = 4000, where CPU tests' 2e-2 would let a wrong
+# kernel pass.
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 8e-3)}
+# served logits vs one plain full forward, as a fraction of the largest
+# |logit|.  float32: summation order only (2.7e-7 on a 32-layer reduced
+# yi on the CPU), while a bfloat16 computation is ~1e-2 away, which the
+# model phase checks.  bfloat16: both sides round to bfloat16 at every
+# layer, each ~1e-2 from the exact value.
+LOGITS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+MODEL = "yi-6b"
+PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 4000, 16
 OBJECTIVES = {"wh": ("weighted_hops",),
               "latency": ("latency_max", "weighted_hops")}
 
@@ -240,6 +276,264 @@ def full_size_problem(name, scale, rotations):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: flash attention vs plain version
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, KH, D, dtype, window, cap); all causal
+ATTN_CASES = [
+    ("mha", 1, 64, 4, 4, 32, "float32", 0, 0.0),
+    ("gqa4-ragged80", 2, 80, 8, 2, 64, "float32", 0, 0.0),
+    ("mqa", 1, 96, 4, 1, 16, "bfloat16", 0, 0.0),
+    ("d128", 2, 64, 2, 2, 128, "float32", 0, 0.0),
+    ("d128", 2, 64, 2, 2, 128, "bfloat16", 0, 0.0),
+    *[(f"window{w}-cap{c:g}", 2, 128, 4, 2, 32, "float32", w, c)
+      for w in (16, 48) for c in (0.0, 30.0)],
+    ("window48-cap30", 1, 300, 8, 2, 128, "bfloat16", 48, 30.0),
+    ("gemma2-27b-local", 1, 8192, 32, 16, 128, "bfloat16", 4096, 50.0),
+    ("yi-6b-prefill", 4, 4000, 32, 4, 128, "float32", 0, 0.0),
+    ("yi-6b-prefill", 4, 4000, 32, 4, 128, "bfloat16", 0, 0.0),
+]
+ATTN_TIMED = ("yi-6b-prefill", "bfloat16")
+
+
+def live_entries(s: int, window: int) -> int:
+    """Score entries a causal (windowed) self-attention of one head over
+    ``s`` positions needs."""
+    import numpy as np
+    q = np.arange(s, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int((q - lo + 1).sum())
+
+
+def attention_bound(b, s, h, kh, d, dtype, window) -> dict:
+    """Least time for one call: every input read and the output written
+    once over the memory rate, or 4*D flops (q.k and p.v) per live score
+    entry over the peak rate of the type (bf16 tensor cores; float32 must
+    stay float32, so the CUDA cores' rate)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elt
+    flops = b * h * live_entries(s, window) * 4 * d
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt)
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    kw = dict(causal=True, window=window, cap=cap)
+
+    def plain():
+        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), **kw).transpose(1, 2)
+
+    n0 = ops.launch_count
+    got = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(ops.launch_count == n0 + 2, f"{name}: kernel did not launch")
+    want = plain()
+    atol, rtol = ATTN_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    rec = {"case": name, "shape": [b, s, h, kh, d], "dtype": dtype,
+           "window": window, "cap": cap, "max_abs_err": err,
+           "mean_abs_out": float(want.float().abs().mean()),
+           "atol": atol, "rtol": rtol}
+    check(torch.equal(got, again), f"{name}/{dtype}: second launch differs")
+    check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
+          f"{name}/{dtype}: kernel vs plain max abs err {err}")
+    if (name, dtype) == ATTN_TIMED:
+        rec["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+        rec["plain_ms"] = cuda_ms(plain, 3, 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True), 10)
+        rec.update(attention_bound(b, s, h, kh, d, dtype, window))
+    del q, k, v, got, again, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the model path — yi-6b served at full width
+# ---------------------------------------------------------------------------
+
+def model_params(cfg) -> dict:
+    """``init_params`` of seed 0, drawn in float32, with every stacked
+    block matrix widened by sqrt(L) to one layer's fan-in, then rounded
+    leaf by leaf to ``cfg``'s dtypes (so the bfloat16 model is the
+    rounding of the float32 one).  The reference's init counts the layer
+    axis in the fan-in; its random yi-6b's blocks barely move the
+    residual stream, and the logits compared below would hardly see
+    attention."""
+    import dataclasses
+    import math
+    from repro_torch.models import init_params, params_spec
+    from repro_torch.models.params import DTYPES, spec_leaves
+    params = init_params(dataclasses.replace(cfg, dtype="float32"), seed=0,
+                         device="cuda")
+    for path, p in spec_leaves(params_spec(cfg)):
+        node = params
+        for key in path[:-1]:
+            node = node[key]
+        val = node[path[-1]]
+        if p.init == "normal" and not p.scale and "layers" in p.axes:
+            val.mul_(math.sqrt(p.shape[p.axes.index("layers")]))
+        node[path[-1]] = val.to(DTYPES[p.dtype or cfg.dtype])
+    return params
+
+
+def drive(cfg, params, prompts, max_seq: int):
+    """prefill + greedy decode steps, as ``ServeEngine.generate`` runs
+    them, keeping every served position's logits.  Returns (logits
+    (B, NEW, V) float32 numpy, tokens (B, NEW) int32, prefill s, decode
+    s)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, prefill
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, cache = prefill(cfg, params, {"tokens": tokens}, max_seq=max_seq)
+        logits = [lg[:, -1].float().cpu()]
+        t1 = time.perf_counter()
+        nxt = lg[:, -1].argmax(-1)
+        out = [nxt]
+        for i in range(NEW_TOKENS - 1):
+            lg, cache = decode_step(cfg, params, cache, nxt[:, None],
+                                    prompts.shape[1] + i)
+            logits.append(lg[:, 0].float().cpu())
+            nxt = lg[:, 0].argmax(-1)
+            out.append(nxt)
+        toks = torch.stack(out, 1).cpu().numpy().astype(np.int32)
+    t2 = time.perf_counter()
+    return torch.stack(logits, 1).numpy(), toks, t1 - t0, t2 - t1
+
+
+def full_forward_logits(cfg, params, prompts, served):
+    """The plain path's logits at the served positions, from one forward
+    pass over prompt + served tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import logits_fn
+    seq = torch.as_tensor(np.concatenate([prompts, served[:, :-1]], axis=1),
+                          device="cuda")
+    plain = dataclasses.replace(cfg, attn_impl="xla_flash")
+    with torch.inference_mode():
+        lg = logits_fn(plain, params, {"tokens": seq})
+        return lg[:, prompts.shape[1] - 1:].float().cpu().numpy()
+
+
+def scaled_err(got, want) -> float:
+    import numpy as np
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def model_phase(profile: bool) -> dict:
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mapscore import ops as ms_ops
+    from repro_torch.models import count_params, params_spec
+    from repro_torch.serve import ServeEngine
+
+    base = get_config(MODEL)
+    check(base.attn_impl == "hopper" and base.family == "dense",
+          f"{MODEL}: not served through the kernel")
+    prompts = np.random.default_rng(0).integers(
+        0, base.vocab_size, size=(PROMPTS, PROMPT_LEN))
+    max_seq = PROMPT_LEN + NEW_TOKENS
+    rec = {"model": MODEL, "params": count_params(params_spec(base)),
+           "layers": base.num_layers, "d_model": base.d_model,
+           "prompts": PROMPTS, "prompt_len": PROMPT_LEN,
+           "new_tokens": NEW_TOKENS, "max_seq": max_seq, "seed": 0,
+           "logits_tol": LOGITS_TOL}
+
+    # (a) float32: the served path against the plain full forward
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 would not be float32")
+    cfg = dataclasses.replace(base, dtype="float32")
+    params = model_params(cfg)
+    engine = ServeEngine(cfg, params, max_seq=max_seq, batch=PROMPTS)
+    served = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    logits, toks, pre_s, dec_s = drive(cfg, params, prompts, max_seq)
+    check(np.array_equal(toks, served),
+          "float32: prefill + decode_step tokens differ from generate's")
+    want32 = full_forward_logits(cfg, params, prompts, served)
+    err = scaled_err(logits, want32)
+    rec["float32"] = {"scaled_err": err, "max_abs_logit":
+                      float(np.abs(want32).max()), "prefill_s": pre_s,
+                      "decode_s": dec_s, "tokens": served[0].tolist()}
+    emit("model", part="float32", **{k: v for k, v in rec.items()
+                                      if k != "float32"}, **rec["float32"])
+    check(np.isfinite(logits).all(), "float32: non-finite logits")
+    check(err <= LOGITS_TOL["float32"],
+          f"float32: served logits {err} from the plain forward")
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # (b) bfloat16: the served run
+    cfg = base
+    params = model_params(cfg)
+    engine = ServeEngine(cfg, params, max_seq=max_seq, batch=PROMPTS)
+    logits, toks, pre_s, dec_s = drive(cfg, params, prompts, max_seq)
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launch_count = ms_ops.launch_count = 0  # the model path only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    gen_s = time.perf_counter() - t0
+    launches = fa_ops.launch_count
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.num_layers,
+          f"generate launched the kernel {launches} times, expected one "
+          f"per layer ({cfg.num_layers})")
+    check(np.array_equal(toks, served),
+          "bfloat16: prefill + decode_step tokens differ from generate's")
+    want = full_forward_logits(cfg, params, prompts, served)
+    err = scaled_err(logits, want)
+    # how far a bfloat16 computation lies from float32: the float32
+    # tolerance must be tighter (same prompt, so position 0 compares)
+    gap = scaled_err(logits[:, 0], want32[:, 0])
+    rec["bfloat16"] = {
+        "scaled_err": err, "max_abs_logit": float(np.abs(want).max()),
+        "vs_float32_at_prefill": gap, "generate_s": gen_s,
+        "prefill_s": pre_s, "decode_ms_per_token":
+            dec_s / (NEW_TOKENS - 1) * 1e3,
+        "tokens_per_s": PROMPTS * NEW_TOKENS / gen_s,
+        "prefill_tokens_per_s": PROMPTS * PROMPT_LEN / pre_s,
+        "flash_launches": launches,
+        "peak_mem_gib": peak / 2 ** 30,
+        "tokens": served[0].tolist()}
+    emit("model", part="bfloat16", **rec["bfloat16"])
+    check(np.isfinite(logits).all(), "bfloat16: non-finite logits")
+    check(err <= LOGITS_TOL["bfloat16"],
+          f"bfloat16: served logits {err} from the plain forward")
+    check(gap > LOGITS_TOL["float32"],
+          f"bfloat16 lies only {gap} from float32: the float32 tolerance "
+          "would not catch it")
+    if profile:
+        model_profile(cfg, params, prompts, max_seq)
+    del params, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where the device's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -267,6 +561,46 @@ def device_profile(fn) -> dict:
     return {"wall_s": wall_s, "device_busy_us": busy_us,
             "device_idle_share": 1.0 - busy_us * 1e-6 / wall_s,
             "by_name": by_name}
+
+
+def model_profile(cfg, params, prompts, max_seq) -> None:
+    """One prefill and one decode step of the served model: device time
+    by kernel name, idle share."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    tokens = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        pre = device_profile(lambda: prefill(cfg, params, {"tokens": tokens},
+                                             max_seq=max_seq))
+        lg, cache = prefill(cfg, params, {"tokens": tokens}, max_seq=max_seq)
+        nxt = lg[:, -1].argmax(-1)[:, None]
+        step = device_profile(lambda: decode_step(cfg, params, cache, nxt,
+                                                  prompts.shape[1]))
+    emit("profile", part="model", model=MODEL, dtype=cfg.dtype,
+         prefill=by_class(pre), decode_step=by_class(step))
+
+
+def by_class(prof: dict, top: int = 8) -> dict:
+    """A profile with its device time summed by kernel class (the flash
+    kernel, cuBLAS products, copies, everything else) and only the
+    ``top`` longest names kept."""
+    classes = {"flash_attention": 0.0, "matmul": 0.0, "copy": 0.0,
+               "other": 0.0}
+    for name, v in prof["by_name"].items():
+        low = name.lower()
+        if "flash_attention" in low:
+            key = "flash_attention"
+        elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet")):
+            key = "matmul"
+        elif "memcpy" in low or "memset" in low:
+            key = "copy"
+        else:
+            key = "other"
+        classes[key] += v["us"]
+    longest = sorted(prof["by_name"].items(), key=lambda kv: -kv[1]["us"])
+    return {**{k: v for k, v in prof.items() if k != "by_name"},
+            "us_by_class": classes,
+            "top": {name[:100]: v for name, v in longest[:top]}}
 
 
 def profile_phase(problem, scale, rotations) -> None:
@@ -301,8 +635,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rotations", type=int, default=8)
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time by kernel name of one "
-                         "kernel launch and of one cold request "
-                         "(torch.profiler)")
+                         "mapscore launch, one cold request, one prefill "
+                         "and one decode step (torch.profiler)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -314,6 +648,8 @@ def main(argv=None) -> int:
     import numpy as np
     from repro_torch.core.metrics import evaluate_candidates_numpy
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import kernel as ms_kernel
     from repro_torch.kernels.mapscore import ops
     from repro_torch.serve import MappingService, get_scenario
@@ -321,6 +657,7 @@ def main(argv=None) -> int:
     # -- phase 1: device + build ------------------------------------------
     smi = nvidia_smi_line()
     ms_kernel._launch_fn()          # builds and loads, or raises
+    fa_kernel._launch_fn()
     info = _build.build_info()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -360,7 +697,7 @@ def main(argv=None) -> int:
     reqs = [get_scenario(n, scale=args.scale,
                          rotations=args.rotations).request()
             for n in SCENARIOS]
-    ops.launch_count = 0            # the main path's launches only
+    ops.launch_count = fa_ops.launch_count = 0  # the main path's only
     served = []
     expected_launches = 0
     for name, req in zip(SCENARIOS, reqs):
@@ -427,7 +764,17 @@ def main(argv=None) -> int:
         profile_phase(problems[SCENARIOS[1].rsplit("-", 1)[0]], args.scale,
                       args.rotations)
 
+    # -- phase 4: flash attention vs plain ----------------------------------
+    attn = [attention_case(*c, seed=i) for i, c in enumerate(ATTN_CASES)]
+    emit("attention", cases=attn,
+         timing="median of 10 kernel / 10 library / 3 plain launches, "
+                "CUDA events")
+
+    # -- phase 5: the model path --------------------------------------------
+    model = model_phase(args.profile)
+
     # -- the kernels line ---------------------------------------------------
+    fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
     lead = full[0]  # minighost on xk7_sparse: the largest accumulators
     kernels = [{
         "name": "mapscore", "route": "cuda",
@@ -442,6 +789,20 @@ def main(argv=None) -> int:
         "shape": {"case": lead["case"], "nb": lead["nb"], "ne": lead["ne"],
                   "dims": lead["dims"], "traffic": True},
         "tolerance": {"rtol": RTOL, "atol": ATOL, "total_hops": "exact"},
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
+        "launches": model["bfloat16"]["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in attn),
+        "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+        "shape": {"case": fa["case"], "bshkd": fa["shape"],
+                  "dtype": fa["dtype"], "causal": True},
+        "tolerance": {k: {"atol": a, "rtol": r}
+                      for k, (a, r) in ATTN_TOL.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -1,8 +1,9 @@
-"""Carry a mapping problem over from the reference package.
+"""Carry a mapping problem or a model configuration over from the
+reference package.
 
-The system has no weights; its state is the request.  These converters
-turn the reference package's objects into this package's by READING
-THEIR ATTRIBUTES as numpy arrays and plain Python values — the
+The mapping system has no weights; its state is the request.  These
+converters turn the reference package's objects into this package's by
+READING THEIR ATTRIBUTES as numpy arrays and plain Python values — the
 reference package is never imported here, so anything with the same
 attribute names converts (duck typing).  Tests build every problem once
 through the reference's constructors, convert, and run both.
@@ -10,10 +11,13 @@ through the reference's constructors, convert, and run both.
 Backend names translate (``"pallas"`` -> ``"hopper"``, ``"jax"`` ->
 ``"torch"``); ``partition_backend="jax"`` is refused until the device
 partitioner is part of this package; ``device`` has no counterpart in
-the reference and is supplied by the caller.
+the reference and is supplied by the caller.  A model's weights come
+across with :func:`repro_torch.models.params_from_numpy`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -21,6 +25,7 @@ from repro_torch.core.machine import Allocation, Machine
 from repro_torch.core.taskgraph import TaskGraph
 from repro_torch.hier.spec import HierarchySpec, Level
 from repro_torch.mapping.pipeline import PipelineConfig
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import MappingRequest
 
 SCORE_BACKEND_NAMES = {"numpy": "numpy", "jax": "torch", "pallas": "hopper"}
@@ -83,6 +88,21 @@ def pipeline_config(ref, *, device: str = "cuda") -> PipelineConfig:
         score_backend=SCORE_BACKEND_NAMES[ref.score_backend],
         hierarchy=hierarchy(ref.hierarchy),
         device=device)
+
+
+ATTN_IMPL_NAMES = {"pallas": "hopper", "xla_flash": "xla_flash",
+                   "quadratic": "quadratic"}
+
+
+def model_config(ref) -> ModelConfig:
+    """A reference ``ModelConfig``, field for field; ``attn_impl``
+    translated (``"pallas"`` -> ``"hopper"``)."""
+    fields = {f.name: getattr(ref, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    if fields["attn_impl"] not in ATTN_IMPL_NAMES:
+        raise ValueError(f"unknown attn_impl {fields['attn_impl']!r}")
+    fields["attn_impl"] = ATTN_IMPL_NAMES[fields["attn_impl"]]
+    return ModelConfig(**fields)
 
 
 def mapping_request(ref, *, device: str = "cuda") -> MappingRequest:

@@ -1,0 +1,20 @@
+"""yi-6b [dense]: llama-arch GQA.  [arXiv:2403.04652; hf]
+
+32L, d_model=4096, 32H (kv=4), d_ff=11008, vocab=64000.
+Full attention -> long_500k skipped (DESIGN.md §4).
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    head_dim=128,
+    rope_theta=5e6,
+    supports_long_context=False,
+)

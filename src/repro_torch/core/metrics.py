@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults, obs
+from repro_torch.device import resolve_device
 
 from .machine import Machine
 
@@ -224,17 +225,6 @@ def _accumulate_circular(out, row, nrows, s, start, length, w, dims, k):
 SCORE_BACKENDS = ("numpy", "torch", "hopper")
 
 
-def _resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device that the process
-    cannot reach raises instead of quietly running elsewhere."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but torch finds no CUDA "
-            "device; pass device='cpu' to run on the host")
-    return dev
-
-
 def _hooked(name: str, fn):
     """Wrap an evaluator with its fault-injection site and span.
 
@@ -289,7 +279,7 @@ def get_evaluator(backend: str, device="cuda"):
     if backend not in SCORE_BACKENDS:
         raise ValueError(f"unknown scoring backend {backend!r}; "
                          f"options: {SCORE_BACKENDS}")
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     if backend == "hopper" and dev.type != "cuda":
         raise ValueError(
             "score backend 'hopper' launches a CUDA kernel and cannot "

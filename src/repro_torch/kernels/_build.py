@@ -1,11 +1,11 @@
 """Build the port's CUDA sources into one shared library and load it.
 
 ``nvcc`` compiles every ``kernels/*/csrc/*.cu`` of this package for
-``sm_90a`` into ``build/repro_torch/libkernels-<hash>.so`` under the
-repository root, keyed by a hash of the sources, and the library is
-loaded with :mod:`ctypes`.  The sources
-expose a plain C interface, so the build takes seconds and needs
-nothing but the CUDA toolkit.
+``sm_90a`` — one compiler process per source, all started together —
+and links the objects into ``build/repro_torch/libkernels-<hash>.so``
+under the repository root, keyed by a hash of the sources; the library
+is loaded with :mod:`ctypes`.  The sources expose a plain C interface,
+so the build takes seconds and needs nothing but the CUDA toolkit.
 
 Nothing happens at import: :func:`load_library` runs at the first kernel
 launch.  A failed build raises :class:`KernelBuildFailure` with the
@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 _REPO_ROOT = _KERNELS_DIR.parents[2]
@@ -63,6 +63,38 @@ def _source_hash(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of every one
+    that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{output}")
+    if failed:
+        raise KernelBuildFailure("\n".join(failed))
+
+
+def _compile_and_link(nvcc: str, srcs, out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in srcs]
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(srcs, objs)])
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent process sees all
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     global _LIB
@@ -76,16 +108,7 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         built = False
         if not out.exists():
-            nvcc = find_nvcc()
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise KernelBuildFailure(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)  # atomic: a concurrent process sees all
+            _compile_and_link(find_nvcc(), srcs, out)
             built = True
         _LIB = ctypes.CDLL(str(out))
         _INFO.update(path=str(out), built=built,

@@ -8,6 +8,10 @@
   workload x allocation x hierarchy x objective cross-product that
   tests and the server draw problems from.
 
+- :mod:`repro_torch.serve.decode` — the token-decode model server
+  (:class:`ServeEngine`, prefill + greedy decode over a KV cache; the
+  dense family).
+
 The degradation ladder and circuit breakers of the reference package are
 not part of this package yet: a cold request is one pipeline pass.
 """
@@ -20,9 +24,20 @@ from .scenarios import (ALLOCATIONS, HIERARCHIES, OBJECTIVE_KEYS,
                         WORKLOADS, Scenario, all_scenarios, get_scenario,
                         scenario_names)
 
+
+def __getattr__(name):
+    # lazy re-export: ServeEngine pulls in the model stack, which the
+    # mapping service itself never needs (PEP 562)
+    if name == "ServeEngine":
+        from .decode import ServeEngine
+        return ServeEngine
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "ALLOCATIONS", "HIERARCHIES", "LRUCache", "MappingRequest",
     "MappingResponse", "MappingService", "OBJECTIVES", "OBJECTIVE_KEYS",
-    "Scenario", "ServiceOverloaded", "WORKLOADS", "all_scenarios",
+    "Scenario", "ServeEngine", "ServiceOverloaded", "WORKLOADS",
+    "all_scenarios",
     "default_service", "get_scenario", "make_request", "scenario_names",
 ]

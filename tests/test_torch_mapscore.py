@@ -291,11 +291,15 @@ def test_kernel_modules_import_without_toolchain():
                  "repro_torch.kernels.mapscore",
                  "repro_torch.kernels.mapscore.kernel",
                  "repro_torch.kernels.mapscore.ops",
-                 "repro_torch.kernels.mapscore.ref"):
+                 "repro_torch.kernels.mapscore.ref",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.flash_attention.ref"):
         importlib.import_module(name)
     from repro_torch.kernels import _build
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["mapscore.cu"]
+    assert srcs == ["flash_attention.cu", "mapscore.cu"]
     assert _build.build_info() == {} or "path" in _build.build_info()
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(_build.KernelBuildFailure, match="nvcc not found"):
