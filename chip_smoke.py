@@ -37,11 +37,31 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    their largest magnitude; (b) bfloat16, the config's dtype: the served
    run, timed, with the kernel's launches (one per layer) and peak
    memory, and the same comparison at 3e-2.
+6. ``ssd``     — the SSD kernel against its plain version (the sequential
+   recurrence) on the card, float32 and bfloat16: L below, at and above
+   the chunk, one head, x / B / C cut from one conv-output tensor with a
+   transposed dt, instant decay (A = -100), and zamba2-1.2b's and
+   mamba2-2.7b's prefill shapes (B=4, L=4096); a second launch must be
+   bit-identical; at mamba2-2.7b's shape the kernel, the plain version
+   and the bound are timed.
+7. ``ssm_model`` — mamba2-2.7b at full width and depth (64 layers),
+   random weights of seed 0 widened as in phase 5, 4 prompts of 256
+   tokens (numpy, seed 0; two chunks) and 16 new tokens: the last-position
+   logits of ``prefill`` (the SSD kernel, one launch per layer) agree with
+   those of the token-by-token ingest ``ServeEngine.generate`` runs
+   (``ssd_step``), and the greedy tokens driven as ``generate`` drives
+   them are its tokens — (a) in float32 to 1e-4 of the largest |logit|,
+   (b) in bfloat16, timed, to 3e-2; (c) one bfloat16 ``prefill`` of
+   4 x 4096 tokens, timed, with its 64 kernel launches.
+8. ``hybrid_model`` — zamba2-1.2b (38 mamba layers, the shared attention
+   block at 6 sites) in bfloat16, the same checks: per prefill 38 SSD and
+   6 flash-attention launches.
 
-With ``--profile`` two more ``profile`` lines give the device time by
+With ``--profile`` three more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
 of one mapscore launch at the largest shape and one more cold request,
-and of one bfloat16 prefill and one decode step of the served model.
+and of one bfloat16 prefill and one decode step of yi-6b and of
+mamba2-2.7b.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -86,6 +106,26 @@ ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 8e-3)}
 LOGITS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 MODEL = "yi-6b"
 PROMPTS, PROMPT_LEN, NEW_TOKENS = 4, 4000, 16
+# SSD kernel vs its plain version, per element: |k - p| <= a * max|p| +
+# r * |p| for (a, r).  float32: tests/test_kernels.py's 2e-5, its absolute
+# part taken at the output's own scale — both sum the same float32 terms
+# in another order, the terms reach max|y| (~400 at L = 4096) and cancel
+# to small outputs, so an absolute 2e-5 holds at that file's L <= 128
+# only.  bfloat16: both sides round one float32 result, so they differ by
+# one ulp where the two straddle a rounding boundary, and one ulp is at
+# most 2**-7 |y| at the output's own magnitude; plus the float32 part.
+SSD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2 ** -7)}
+SSM_MODEL, HYBRID_MODEL = "mamba2-2.7b", "zamba2-1.2b"
+SSM_PROMPT_LEN, SSM_LONG_LEN = 256, 4096
+# prefill (SSD kernel) vs the recurrent ingest (ssd_step), last-position
+# logits, as a fraction of the largest |logit|.  float32: order of sums
+# only (1e-5 is the CPU tests' limit at reduced size), and a bfloat16
+# computation lies ~1e-2 away, which the phase checks.  bfloat16: the
+# ingest rounds the state to bfloat16 for every readout and carries the
+# conv context in bfloat16, the kernel keeps both in float32; 64 layers
+# of bfloat16 roundings on either side: 8.9e-3 (mamba2-2.7b) and 7.0e-3
+# (zamba2-1.2b) on the H100 (PERF.md), so the dense phase's 3e-2.
+SSM_LOGITS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 OBJECTIVES = {"wh": ("weighted_hops",),
               "latency": ("latency_max", "weighted_hops")}
 
@@ -448,6 +488,7 @@ def model_phase(profile: bool) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import ops as ms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.models import count_params, params_spec
     from repro_torch.serve import ServeEngine
 
@@ -492,13 +533,16 @@ def model_phase(profile: bool) -> dict:
     engine = ServeEngine(cfg, params, max_seq=max_seq, batch=PROMPTS)
     logits, toks, pre_s, dec_s = drive(cfg, params, prompts, max_seq)
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.launch_count = ms_ops.launch_count = 0  # the model path only
+    # the model path only
+    fa_ops.launch_count = ms_ops.launch_count = ssd_ops.launch_count = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     served = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
     gen_s = time.perf_counter() - t0
     launches = fa_ops.launch_count
     peak = torch.cuda.max_memory_allocated()
+    check(ms_ops.launch_count == ssd_ops.launch_count == 0,
+          "the dense model path launched another kernel")
     check(launches == cfg.num_layers,
           f"generate launched the kernel {launches} times, expected one "
           f"per layer ({cfg.num_layers})")
@@ -534,6 +578,279 @@ def model_phase(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the SSD kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+# (name, B, L, H, P, N, chunk, A or None (drawn), x/B/C cut from one tensor)
+SSD_CASES = [
+    ("l-below-chunk", 1, 48, 2, 16, 16, 128, None, False),
+    ("l-at-chunk", 2, 128, 2, 32, 32, 128, None, False),
+    ("three-chunks", 2, 384, 4, 64, 64, 128, None, False),
+    ("one-head", 1, 256, 1, 64, 128, 128, None, False),
+    ("conv-out-views", 2, 256, 4, 64, 128, 128, None, True),
+    ("decay-100", 1, 64, 2, 16, 16, 32, -100.0, False),
+    ("zamba2-1.2b-prefill", 4, 4096, 64, 64, 64, 128, None, False),
+    ("mamba2-2.7b-prefill", 4, 4096, 80, 64, 128, 128, None, False),
+]
+SSD_TIMED = ("mamba2-2.7b-prefill", "bfloat16")
+SSD_QT = 32                 # the kernel's own chunk (csrc/ssd.cu)
+
+
+def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
+    """x, dt, A, B, C on the card as ``tests/test_kernels.py`` draws them
+    (dt = softplus(normal) float32, A = -exp(0.5 normal), or ``a_value``
+    with dt moved up by 0.5); with ``views``
+    x, B and C are column slices of one (B, L, H*P + 2N) tensor and dt a
+    transposed view, the layout ``mamba_block`` hands the kernel."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tdt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    if views:
+        conv = randn(b, l, h * p + 2 * n).to(tdt)
+        x = conv[..., :h * p].reshape(b, l, h, p)
+        B, C = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        dt = F.softplus(randn(b, h, l)).transpose(1, 2)
+    else:
+        x = randn(b, l, h, p).to(tdt)
+        B, C = randn(b, l, n).to(tdt), randn(b, l, n).to(tdt)
+        dt = F.softplus(randn(b, l, h))
+    if a_value is None:
+        A = -torch.exp(randn(h) * 0.5)
+    else:  # dt >= 0.5: every step's decay exp(dt * A) is below exp(-50)
+        A = torch.full((h,), a_value, device="cuda")
+        dt = dt + 0.5
+    return x, dt, A, B, C
+
+
+def ssd_bound(b, l, h, p, n, dtype) -> dict:
+    """Least time for one call.  Bytes: x, dt, A, B and C read once, y
+    written once.  Operations: what the kernel's chunked form needs per
+    (b, h) row and chunk of 32 steps — 2(N + P) flops per live (j <= i)
+    score entry (C.B and the score-weighted x), 2NP per step for the
+    carried state's readout and 2NP per step for its update — over the
+    peak rate of the type (bf16 tensor cores; float32 must stay float32,
+    so the CUDA cores' rate)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * l * h * p + 2 * b * l * n) * elt + b * l * h * 4 \
+        + h * 4
+    chunks = -(-l // SSD_QT)
+    live = SSD_QT * (SSD_QT + 1) // 2
+    flops = b * h * chunks * (live * 2 * (n + p) + 2 * 2 * SSD_QT * n * p)
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def ssd_case(name, b, l, h, p, n, chunk, a_value, views, dtype, seed):
+    import torch
+    from repro_torch.kernels.ssd import ops, ref
+    x, dt, A, B, C = ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed)
+    n0 = ops.launch_count
+    got = ops.ssd(x, dt, A, B, C, chunk=chunk)
+    again = ops.ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    check(ops.launch_count == n0 + 2, f"{name}: kernel did not launch")
+    want = ref.ssd_model_ref(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    a_frac, rtol = SSD_TOL[dtype]
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    rec = {"case": name, "shape": [b, l, h, p, n], "chunk": chunk,
+           "dtype": dtype, "max_abs_err": err, "max_abs_out": scale,
+           "mean_abs_out": float(w.abs().mean()),
+           "atol": a_frac * scale, "rtol": rtol}
+    check(torch.equal(got, again), f"{name}/{dtype}: second launch differs")
+    check(bool(torch.isfinite(g).all()), f"{name}/{dtype}: non-finite y")
+    check(torch.allclose(g, w, atol=a_frac * scale, rtol=rtol),
+          f"{name}/{dtype}: kernel vs plain max abs err {err}")
+    if a_value is not None and dtype == "float32":
+        # instant decay leaves the local term y_t = (C_t . B_t) dt_t x_t
+        local = torch.einsum("bln,bln->bl", C, B)[..., None, None] * (
+            x * dt[..., None])
+        check(torch.allclose(g, local, atol=1e-4, rtol=1e-4),
+              f"{name}: history did not vanish")
+    if (name, dtype) == SSD_TIMED:
+        rec["ms"] = cuda_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk), 10)
+        rec["plain_ms"] = cuda_ms(lambda: ref.ssd_model_ref(x, dt, A, B, C),
+                                  2, 1)
+        rec.update(ssd_bound(b, l, h, p, n, dtype))
+    del x, dt, A, B, C, got, again, want, g, w
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: mamba2-2.7b and zamba2-1.2b served at full width
+# ---------------------------------------------------------------------------
+
+def drive_recurrent(cfg, params, prompts, max_seq):
+    """The token-by-token ingest and the greedy decode steps, as
+    ``ServeEngine.generate`` runs them for ssm / hybrid prompts.  Returns
+    (last ingest logits (B, V) float32 numpy, tokens (B, NEW) int32,
+    ingest s, decode s)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, init_cache
+    tokens = torch.as_tensor(prompts, device="cuda")
+    plen = prompts.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = init_cache(cfg, prompts.shape[0], max_seq, device="cuda")
+        for t in range(plen):
+            lg, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
+                                    t)
+        last = lg[:, 0].float().cpu().numpy()
+        t1 = time.perf_counter()
+        nxt = lg[:, 0].argmax(-1)
+        out = [nxt]
+        for i in range(NEW_TOKENS - 1):
+            lg, cache = decode_step(cfg, params, cache, nxt[:, None],
+                                    plen + i)
+            nxt = lg[:, 0].argmax(-1)
+            out.append(nxt)
+        toks = torch.stack(out, 1).cpu().numpy().astype(np.int32)
+    t2 = time.perf_counter()
+    return last, toks, t1 - t0, t2 - t1
+
+
+def counted_prefill(cfg, params, prompts) -> tuple:
+    """One ``prefill`` with every kernel count set to 0 just before and
+    read just after: (last logits float32 numpy, seconds, counts)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mapscore import ops as ms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import prefill
+    tokens = torch.as_tensor(prompts, device="cuda")
+    torch.cuda.synchronize()
+    ms_ops.launch_count = fa_ops.launch_count = ssd_ops.launch_count = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, _ = prefill(cfg, params, {"tokens": tokens})
+        last = lg[:, -1].float().cpu().numpy()
+    seconds = time.perf_counter() - t0
+    counts = {"ssd": ssd_ops.launch_count,
+              "flash_attention": fa_ops.launch_count,
+              "mapscore": ms_ops.launch_count}
+    return last, seconds, counts
+
+
+def recurrent_model(name: str, dtype: str, *, long_len: int = 0,
+                    profile: bool = False) -> dict:
+    """Prefill (the SSD kernel) against the recurrent ingest on 4 prompts
+    of ``SSM_PROMPT_LEN`` tokens, ``generate`` against the driven steps,
+    timed; with ``long_len`` one more timed prefill of 4 x ``long_len``
+    tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, params_spec
+    from repro_torch.models.transformer import is_attn_site
+    from repro_torch.serve import ServeEngine
+
+    base = get_config(name)
+    check(base.family in ("ssm", "hybrid"), f"{name}: not an ssm model")
+    cfg = dataclasses.replace(base, dtype=dtype)
+    sites = (sum(is_attn_site(cfg, i) for i in range(cfg.num_layers))
+             if cfg.family == "hybrid" else 0)
+    want_counts = {"ssd": cfg.num_layers, "flash_attention": sites,
+                   "mapscore": 0}
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(PROMPTS, SSM_PROMPT_LEN))
+    max_seq = SSM_PROMPT_LEN + NEW_TOKENS
+    params = model_params(cfg)
+    rec = {"model": name, "dtype": dtype,
+           "params": count_params(params_spec(cfg)),
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+           "ssm_state": cfg.ssm_state, "attn_sites": sites,
+           "prompts": PROMPTS, "prompt_len": SSM_PROMPT_LEN,
+           "new_tokens": NEW_TOKENS, "seed": 0,
+           "logits_tol": SSM_LOGITS_TOL[dtype]}
+
+    last_rec, toks, ingest_s, dec_s = drive_recurrent(cfg, params, prompts,
+                                                      max_seq)
+    last_pre, pre_s, counts = counted_prefill(cfg, params, prompts)
+    check(counts == want_counts,
+          f"{name}/{dtype}: prefill launched {counts}, expected "
+          f"{want_counts}")
+    err = scaled_err(last_pre, last_rec)
+    engine = ServeEngine(cfg, params, max_seq=max_seq, batch=PROMPTS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec.update({
+        "scaled_err": err, "max_abs_logit": float(np.abs(last_rec).max()),
+        "prefill_s": pre_s, "ingest_s": ingest_s,
+        "decode_ms_per_token": dec_s / (NEW_TOKENS - 1) * 1e3,
+        "generate_s": gen_s, "tokens_per_s": PROMPTS * NEW_TOKENS / gen_s,
+        "peak_mem_gib": peak / 2 ** 30, "prefill_launches": counts,
+        "tokens": served[0].tolist(), "prefill_last": last_pre})
+    check(np.isfinite(last_pre).all() and np.isfinite(last_rec).all(),
+          f"{name}/{dtype}: non-finite logits")
+    check(err <= SSM_LOGITS_TOL[dtype],
+          f"{name}/{dtype}: prefill logits {err} from the recurrent ingest")
+    check(np.array_equal(toks, served),
+          f"{name}/{dtype}: driven tokens differ from generate's")
+    if long_len:
+        long = rng.integers(0, cfg.vocab_size, size=(PROMPTS, long_len))
+        counted_prefill(cfg, params, long[:, :SSD_QT])       # warm-up
+        last_long, long_s, long_counts = counted_prefill(cfg, params, long)
+        check(long_counts == want_counts,
+              f"{name}/{dtype}: long prefill launched {long_counts}")
+        check(np.isfinite(last_long).all(), "long prefill: non-finite")
+        rec.update({"long_prompt_len": long_len, "long_prefill_s": long_s,
+                    "long_prefill_tokens_per_s": PROMPTS * long_len / long_s,
+                    "long_prefill_launches": long_counts})
+    if profile:
+        model_profile(cfg, params, prompts, max_seq, name)
+    del params, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_phase(profile: bool) -> dict:
+    """mamba2-2.7b in float32, then bfloat16 (timed, and a long
+    prefill); the bfloat16 prefill logits must lie beyond the float32
+    tolerance from the float32 ones, or that tolerance would not tell
+    the two apart."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 would not be float32")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        rec = recurrent_model(SSM_MODEL, dtype,
+                              long_len=SSM_LONG_LEN if dtype == "bfloat16"
+                              else 0, profile=profile and dtype == "bfloat16")
+        out[dtype] = rec
+        emit("ssm_model", **{k: v for k, v in rec.items()
+                             if k != "prefill_last"})
+    gap = scaled_err(out["bfloat16"]["prefill_last"],
+                     out["float32"]["prefill_last"])
+    emit("ssm_model", part="bfloat16_vs_float32", scaled_gap=gap)
+    check(gap > SSM_LOGITS_TOL["float32"],
+          f"bfloat16 lies only {gap} from float32: the float32 tolerance "
+          "would not catch it")
+    out["bfloat16_vs_float32"] = gap
+    return out
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where the device's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -563,9 +880,11 @@ def device_profile(fn) -> dict:
             "by_name": by_name}
 
 
-def model_profile(cfg, params, prompts, max_seq) -> None:
+def model_profile(cfg, params, prompts, max_seq, name=MODEL) -> None:
     """One prefill and one decode step of the served model: device time
-    by kernel name, idle share."""
+    by kernel name, idle share.  (For ssm models the step runs on the
+    unfilled cache prefill returns: its cost does not depend on the
+    state's values.)"""
     import torch
     from repro_torch.models import decode_step, prefill
     tokens = torch.as_tensor(prompts, device="cuda")
@@ -576,20 +895,22 @@ def model_profile(cfg, params, prompts, max_seq) -> None:
         nxt = lg[:, -1].argmax(-1)[:, None]
         step = device_profile(lambda: decode_step(cfg, params, cache, nxt,
                                                   prompts.shape[1]))
-    emit("profile", part="model", model=MODEL, dtype=cfg.dtype,
+    emit("profile", part="model", model=name, dtype=cfg.dtype,
          prefill=by_class(pre), decode_step=by_class(step))
 
 
 def by_class(prof: dict, top: int = 8) -> dict:
     """A profile with its device time summed by kernel class (the flash
-    kernel, cuBLAS products, copies, everything else) and only the
-    ``top`` longest names kept."""
-    classes = {"flash_attention": 0.0, "matmul": 0.0, "copy": 0.0,
-               "other": 0.0}
+    and SSD kernels, cuBLAS products, copies, everything else) and only
+    the ``top`` longest names kept."""
+    classes = {"flash_attention": 0.0, "ssd": 0.0, "matmul": 0.0,
+               "copy": 0.0, "other": 0.0}
     for name, v in prof["by_name"].items():
         low = name.lower()
         if "flash_attention" in low:
             key = "flash_attention"
+        elif "ssd_chunked_scan" in low:
+            key = "ssd"
         elif any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet")):
             key = "matmul"
         elif "memcpy" in low or "memset" in low:
@@ -635,8 +956,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rotations", type=int, default=8)
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time by kernel name of one "
-                         "mapscore launch, one cold request, one prefill "
-                         "and one decode step (torch.profiler)")
+                         "mapscore launch, one cold request, and one "
+                         "prefill and decode step of yi-6b and of "
+                         "mamba2-2.7b (torch.profiler)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -652,12 +974,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import kernel as ms_kernel
     from repro_torch.kernels.mapscore import ops
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.serve import MappingService, get_scenario
 
     # -- phase 1: device + build ------------------------------------------
     smi = nvidia_smi_line()
     ms_kernel._launch_fn()          # builds and loads, or raises
     fa_kernel._launch_fn()
+    ssd_kernel._launch_fn()
     info = _build.build_info()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -697,7 +1022,8 @@ def main(argv=None) -> int:
     reqs = [get_scenario(n, scale=args.scale,
                          rotations=args.rotations).request()
             for n in SCENARIOS]
-    ops.launch_count = fa_ops.launch_count = 0  # the main path's only
+    # the main path's only
+    ops.launch_count = fa_ops.launch_count = ssd_ops.launch_count = 0
     served = []
     expected_launches = 0
     for name, req in zip(SCENARIOS, reqs):
@@ -725,6 +1051,8 @@ def main(argv=None) -> int:
                        "rotation": res.rotation,
                        **{k: v for k, v in res.stats["timings"].items()}})
     launches = ops.launch_count
+    check(fa_ops.launch_count == ssd_ops.launch_count == 0,
+          "the mapping path launched a model kernel")
     check(launches == expected_launches and launches > 0,
           f"launch count {launches}, expected {expected_launches}")
 
@@ -773,8 +1101,21 @@ def main(argv=None) -> int:
     # -- phase 5: the model path --------------------------------------------
     model = model_phase(args.profile)
 
+    # -- phase 6: the SSD kernel vs plain -----------------------------------
+    ssd = [ssd_case(*c, dtype=dt, seed=i) for i, c in enumerate(SSD_CASES)
+           for dt in ("float32", "bfloat16")]
+    emit("ssd", cases=ssd, timing="median of 10 kernel / 2 plain launches, "
+                                  "CUDA events")
+
+    # -- phases 7 and 8: the ssm and hybrid model paths ---------------------
+    ssm = ssm_phase(args.profile)
+    hybrid = recurrent_model(HYBRID_MODEL, "bfloat16")
+    emit("hybrid_model", **{k: v for k, v in hybrid.items()
+                            if k != "prefill_last"})
+
     # -- the kernels line ---------------------------------------------------
     fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
+    sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED)
     lead = full[0]  # minighost on xk7_sparse: the largest accumulators
     kernels = [{
         "name": "mapscore", "route": "cuda",
@@ -803,6 +1144,19 @@ def main(argv=None) -> int:
                   "dtype": fa["dtype"], "causal": True},
         "tolerance": {k: {"atol": a, "rtol": r}
                       for k, (a, r) in ATTN_TOL.items()},
+    }, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:68",
+        "launches": ssm["bfloat16"]["long_prefill_launches"]["ssd"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd),
+        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": None,
+        "shape": {"case": sd["case"], "blhpn": sd["shape"],
+                  "dtype": sd["dtype"]},
+        "tolerance": {k: {"atol": f"{a:g} * max|y|", "rtol": r}
+                      for k, (a, r) in SSD_TOL.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

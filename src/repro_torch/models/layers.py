@@ -1,6 +1,6 @@
 """Model layers in plain torch (functional; params are nested dicts).
 
-The dense subset of the reference package's ``models/layers.py``.
+The reference package's ``models/layers.py`` but for the MoE block.
 Attention comes in three implementations selected by cfg.attn_impl:
 
 - "quadratic": materialises the score matrix — the readable oracle, used
@@ -12,9 +12,12 @@ Attention comes in three implementations selected by cfg.attn_impl:
   runs the plain version).
 
 All attention paths support GQA, causal masking, sliding windows and
-gemma-style logit soft-capping.  The reference's sharding annotations
-are no-ops on one card and are left out.  The MoE and Mamba2 blocks
-belong to later slices of the port.
+gemma-style logit soft-capping.  The Mamba2 block's full-sequence SSD
+goes through the hand-written kernel of :mod:`repro_torch.kernels.ssd`
+(its wrapper runs the plain version on CPU tensors); its decode step is
+the single-token recurrence.  The reference's sharding annotations are
+no-ops on one card and are left out.  The MoE block belongs to a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -24,8 +27,7 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 
-_LATER = ("belongs to a later slice of the PyTorch port; this one serves "
-          "the dense family")
+_LATER = "belongs to a later slice of the PyTorch port"
 
 
 # ---------------------------------------------------------------------------
@@ -219,13 +221,130 @@ def moe_block(cfg, p, x):
     raise NotImplementedError(f"moe_block {_LATER}")
 
 
-def mamba_block(cfg, p, x, *, cache=None):
-    raise NotImplementedError(f"mamba_block {_LATER} (with kernel K3, ssd)")
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def _f32(*ts):
+    """The tensors in float32, as jnp.einsum promotes mixed operands."""
+    return tuple(t.float() for t in ts)
 
 
 def ssd_reference(x, dt, A, B, C, *, chunk: int):
-    raise NotImplementedError(f"ssd_reference {_LATER} (with kernel K3, ssd)")
+    """Chunked SSD scan (Dao & Gu 2024), plain torch.
+
+    x : (b, l, h, p)   dt: (b, l, h)   A: (h,) negative decay
+    B : (b, l, n)      C : (b, l, n)
+    returns y: (b, l, h, p) and final state (b, h, p, n)
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    q = chunk
+    nc = l // q
+    if nc * q != l:
+        raise ValueError(f"sequence length {l} is not a multiple of the "
+                         f"chunk {q}")
+    xc = x.reshape(b, nc, q, h, p)
+    dtc = dt.reshape(b, nc, q, h)
+    Bc = B.reshape(b, nc, q, n)
+    Cc = C.reshape(b, nc, q, n)
+    a = dtc * A  # (b, nc, q, h) log-decay increments (negative)
+    s_cum = torch.cumsum(a, dim=2)  # within-chunk cumulative
+    # intra-chunk: L[i,j] = exp(s_i - s_j) for j <= i
+    si = s_cum[:, :, :, None, :]        # (b,nc,q,1,h)
+    sj = s_cum[:, :, None, :, :]        # (b,nc,1,q,h)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    Lmat = torch.where(mask[None, None, :, :, None], torch.exp(si - sj),
+                       0.0)  # (b,nc,q,q,h)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (b,nc,q,q), x's dtype
+    scores = cb[..., None] * Lmat * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", *_f32(scores, xc))
+    # chunk-final states: S_c = sum_j exp(s_Q - s_j) dt_j B_j x_j
+    decay_out = torch.exp(s_cum[:, :, -1:, :] - s_cum)   # (b,nc,q,h)
+    dBx = torch.einsum("bcqh,bcqn,bcqhp->bchpn",
+                       *_f32(decay_out * dtc, Bc, xc))
+    chunk_decay = torch.exp(s_cum[:, :, -1, :])          # (b,nc,h)
+    S = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    S_enter = []  # the state *entering* each chunk
+    for c in range(nc):
+        S_enter.append(S)
+        S = S * chunk_decay[:, c, :, None, None].float() + dBx[:, c]
+    S_enter = torch.stack(S_enter, dim=1)  # (b,nc,h,p,n)
+    # inter-chunk: y_i += C_i . (exp(s_i) * S_enter)
+    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp",
+                           *_f32(Cc, S_enter.to(Cc.dtype), torch.exp(s_cum)))
+    y = (y_intra + y_inter).reshape(b, l, h, p)
+    return y.to(x.dtype), S
 
 
 def ssd_step(x, dt, A, B, C, state):
-    raise NotImplementedError(f"ssd_step {_LATER} (with kernel K3, ssd)")
+    """Single-token SSD recurrence.  x: (b,h,p); state: (b,h,p,n)."""
+    dA = torch.exp(dt * A)                        # (b,h)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", *_f32(dt, B, x))
+    state = state * dA[..., None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", *_f32(C, state.to(C.dtype)))
+    return y.to(x.dtype), state
+
+
+def _depthwise_conv(seq, w, state=None):
+    """Causal depthwise conv1d.  seq: (b, l, c); w: (width, c).
+
+    state: (b, width-1, c) carried context for decode; returns (out,
+    new_state).  The taps are summed left to right in seq's dtype."""
+    width = w.shape[0]
+    if state is None:
+        ctx = F.pad(seq, (0, 0, width - 1, 0))
+    else:
+        ctx = torch.cat([state.to(seq.dtype), seq], dim=1)
+    out = sum(ctx[:, i:i + seq.shape[1], :] * w[i] for i in range(width))
+    new_state = ctx[:, -(width - 1):, :] if width > 1 else None
+    return out.to(seq.dtype), new_state
+
+
+def mamba_block(cfg, p, x, *, cache=None):
+    """Mamba2 block.  p: {"z_proj","x_proj","bc_proj","dt_proj","conv_w",
+    "A_log","D","dt_bias","norm","out_proj"}.
+
+    cache: None for the full sequence, or {"state": (b,h,hp,n) float32,
+    "conv": (b,w-1,conv_dim)} for single-token decode; the decode branch
+    writes both IN PLACE (as ``attn_block`` writes its k/v cache) and
+    returns the same dict.  The full sequence goes through the SSD
+    kernel's wrapper (:func:`repro_torch.kernels.ssd.ops.ssd`), the
+    reference's ``ssd_reference`` semantics: on the card the hand-written
+    kernel, on CPU tensors its plain version.
+    Returns (y, cache_or_None).
+    """
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    b, l, e = x.shape
+    inner = cfg.ssm_inner
+    n = cfg.ssm_state
+    h = cfg.ssm_heads
+    hp = cfg.ssm_head_dim
+    z = torch.einsum("ble,ed->bld", x, p["z_proj"])
+    xin = torch.einsum("ble,ed->bld", x, p["x_proj"])
+    bc = torch.einsum("ble,ed->bld", x, p["bc_proj"])
+    dt = torch.einsum("ble,eh->blh", x, p["dt_proj"])
+    Bc, Cc = bc[..., :n], bc[..., n:]
+    conv_in = torch.cat([xin, Bc, Cc], dim=-1)
+    conv_state = cache["conv"] if cache is not None else None
+    conv_out, new_conv = _depthwise_conv(conv_in, p["conv_w"], conv_state)
+    conv_out = F.silu(conv_out)
+    xin = conv_out[..., :inner]
+    Bc = conv_out[..., inner:inner + n]
+    Cc = conv_out[..., inner + n:]
+    dt = F.softplus(dt + p["dt_bias"])                # (b,l,h) float32
+    A = -torch.exp(p["A_log"].float())                # (h,)
+    xh = xin.reshape(b, l, h, hp)
+    if cache is None:
+        y = ssd_ops.ssd(xh, dt, A, Bc, Cc, chunk=min(cfg.ssm_chunk, l))
+    else:
+        y, new_state = ssd_step(xh[:, 0], dt[:, 0], A, Bc[:, 0], Cc[:, 0],
+                                cache["state"])
+        y = y[:, None]
+        cache["state"].copy_(new_state)
+        cache["conv"].copy_(new_conv)
+    y = (y + xh * p["D"][None, None, :, None]).to(x.dtype)
+    y = y.reshape(b, l, inner)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = torch.einsum("bld,de->ble", y, p["out_proj"]).to(x.dtype)
+    return out, cache

@@ -1,12 +1,12 @@
 """Model assembly: parameter declarations and the forward pass of the
-dense family.
+dense, ssm (mamba2) and hybrid (zamba2) families.
 
 The reference scans its stacked layers with ``lax.scan`` and dispatches
-gemma's local / global layers with ``lax.cond`` on a per-layer flag;
-here the scan is a Python loop over the stacked tensors and the
-``cond`` an ``if`` on the same flag.  The other families (moe, ssm,
-hybrid, encdec, vlm), the loss and training belong to later slices of
-the port and raise ``NotImplementedError``.
+gemma's local / global layers and zamba's shared-attention sites with
+``lax.cond`` on a per-layer flag; here the scan is a Python loop over
+the stacked tensors and the ``cond`` an ``if`` on the same flag.  The
+other families (moe, encdec, vlm), the loss and training belong to later
+slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,12 +19,16 @@ from .config import ModelConfig
 from .params import DTYPES, P
 
 
-def require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def require_ported(cfg: ModelConfig, what: str) -> None:
+    """Raise for the families still unported: moe, encdec and vlm."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{what} for the {cfg.family!r} family ({cfg.name}) belongs to "
-            "a later slice of the PyTorch port; this one serves the dense "
-            "family")
+            "a later slice of the PyTorch port; this one serves the "
+            f"{', '.join(PORTED_FAMILIES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -54,6 +58,29 @@ def _mlp_spec(cfg: ModelConfig, nl: int):
     }
 
 
+def _mamba_spec(cfg: ModelConfig, nl: int):
+    e = cfg.d_model
+    inner, n, h = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = inner + 2 * n
+    return {
+        "z_proj": P((nl, e, inner), ("layers", "embed", "ssm_inner")),
+        "x_proj": P((nl, e, inner), ("layers", "embed", "ssm_inner")),
+        "bc_proj": P((nl, e, 2 * n), ("layers", "embed", None)),
+        "dt_proj": P((nl, e, h), ("layers", "embed", "ssm_heads")),
+        "conv_w": P((nl, cfg.conv_width, conv_dim),
+                    ("layers", "conv", "ssm_inner")),
+        "A_log": P((nl, h), ("layers", "ssm_heads"), init="zeros",
+                   dtype="float32"),
+        "D": P((nl, h), ("layers", "ssm_heads"), init="ones",
+               dtype="float32"),
+        "dt_bias": P((nl, h), ("layers", "ssm_heads"), init="zeros",
+                     dtype="float32"),
+        "norm": P((nl, inner), ("layers", "ssm_inner"), init="zeros",
+                  dtype="float32"),
+        "out_proj": P((nl, inner, e), ("layers", "ssm_inner", "embed")),
+    }
+
+
 def _norm(nl: int, e: int):
     if nl:
         return P((nl, e), ("layers", None), init="zeros", dtype="float32")
@@ -61,11 +88,20 @@ def _norm(nl: int, e: int):
 
 
 def params_spec(cfg: ModelConfig) -> dict:
-    require_dense(cfg, "params_spec")
+    require_ported(cfg, "params_spec")
     e, v, nl = cfg.d_model, cfg.vocab_size, cfg.num_layers
     spec: dict = {"tok_embed": P((v, e), ("vocab", "embed"), init="embed")}
-    spec["layers"] = {"ln1": _norm(nl, e), "ln2": _norm(nl, e),
-                      "attn": _attn_spec(cfg, nl), "mlp": _mlp_spec(cfg, nl)}
+    if cfg.family == "dense":
+        spec["layers"] = {"ln1": _norm(nl, e), "ln2": _norm(nl, e),
+                          "attn": _attn_spec(cfg, nl),
+                          "mlp": _mlp_spec(cfg, nl)}
+    else:  # ssm, hybrid
+        spec["layers"] = {"ln1": _norm(nl, e),
+                          "mamba": _mamba_spec(cfg, nl)}
+    if cfg.family == "hybrid":  # one shared block, unstacked
+        spec["shared_attn"] = {
+            "ln1": _norm(0, e), "ln2": _norm(0, e),
+            "attn": _attn_spec(cfg, 0), "mlp": _mlp_spec(cfg, 0)}
     spec["final_norm"] = _norm(0, e)
     if not cfg.tie_embeddings:
         spec["unembed"] = P((e, v), ("embed", "vocab"))
@@ -120,6 +156,43 @@ def _stack_dense(cfg, lp, x, positions, *, collect_kv=False):
     return x, (kvs if collect_kv else None)
 
 
+def _mamba_layer(cfg, p, x, *, cache=None):
+    h, cache = L.mamba_block(cfg, p["mamba"],
+                             L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                             cache=cache)
+    return x + h, cache
+
+
+def _stack_ssm(cfg, lp, x, positions):
+    for i in range(cfg.num_layers):
+        x, _ = _mamba_layer(cfg, layer_params(lp, i), x)
+    return x, None
+
+
+def is_attn_site(cfg: ModelConfig, i: int) -> bool:
+    """Whether hybrid layer ``i`` is followed by the shared block."""
+    return (i + 1) % cfg.attn_every == 0
+
+
+def _stack_hybrid(cfg, lp, shared, x, positions, *, collect_kv=False):
+    """Zamba2-style: mamba backbone + one shared attention block applied
+    every cfg.attn_every layers (same weights at every site).  With
+    ``collect_kv`` also the per-layer (k, v) of the shared block, zeros
+    at the layers that are not sites (the reference's scan outputs)."""
+    kvs = []
+    for i in range(cfg.num_layers):
+        x, _ = _mamba_layer(cfg, layer_params(lp, i), x)
+        kv = None
+        if is_attn_site(cfg, i):
+            x, kv = _dense_block(cfg, shared, x, positions, 0)
+        if collect_kv:
+            kvs.append(kv)
+    if not collect_kv:
+        return x, None
+    zero = tuple(map(torch.zeros_like, next(kv for kv in kvs if kv)))
+    return x, [kv or zero for kv in kvs]
+
+
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
@@ -142,11 +215,17 @@ def unembed(cfg, params, x):
 
 def forward_hidden(cfg: ModelConfig, params, batch):
     """Run the backbone to final hidden states (no unembedding)."""
-    require_dense(cfg, "forward_hidden")
+    require_ported(cfg, "forward_hidden")
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x, _ = _stack_dense(cfg, params["layers"], x, positions)
+    if cfg.family == "dense":
+        x, _ = _stack_dense(cfg, params["layers"], x, positions)
+    elif cfg.family == "ssm":
+        x, _ = _stack_ssm(cfg, params["layers"], x, positions)
+    else:  # hybrid
+        x, _ = _stack_hybrid(cfg, params["layers"], params["shared_attn"],
+                             x, positions)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -9,8 +9,8 @@
   tests and the server draw problems from.
 
 - :mod:`repro_torch.serve.decode` — the token-decode model server
-  (:class:`ServeEngine`, prefill + greedy decode over a KV cache; the
-  dense family).
+  (:class:`ServeEngine`, prompt ingestion + greedy decode over a KV or
+  SSM cache; the dense, ssm and hybrid families).
 
 The degradation ladder and circuit breakers of the reference package are
 not part of this package yet: a cold request is one pipeline pass.
