@@ -23,11 +23,12 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 4. ``attention`` — the flash-attention kernel against its plain-torch
    version on the card: MHA, GQA 4:1 and MQA, ragged S (80; 4000), head
    dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
-   layer (S=8192, window 4096, cap 50) and yi-6b's prefill (B=4, S=4000,
-   H=32, KH=4, D=128), float32 at 2e-5 and bfloat16 at 4e-3 + 8e-3·|o|
-   (two ulp); a second launch must be bit-identical; at yi-6b's shape the
+   layer (S=8192, window 4096, cap 50), yi-6b's prefill (B=4, S=4000,
+   H=32, KH=4, D=128) and zamba2-1.2b's (B=4, S=256, H=KH=32, D=64),
+   float32 at 2e-5 and bfloat16 at 4e-3 + 8e-3·|o| (two ulp); a second
+   launch must be bit-identical; at the three bfloat16 model shapes the
    kernel, the plain version, the bound and ``scaled_dot_product_attention``
-   are timed.
+   (with a window: an explicit boolean mask, and no cap) are timed.
 5. ``model``   — yi-6b at full width and depth, random weights of seed 0
    (``init_params``, block matrices widened to one layer's fan-in),
    serves 4 prompts of 4000 tokens (numpy, seed 0) for 16 new tokens:
@@ -332,8 +333,13 @@ ATTN_CASES = [
     ("gemma2-27b-local", 1, 8192, 32, 16, 128, "bfloat16", 4096, 50.0),
     ("yi-6b-prefill", 4, 4000, 32, 4, 128, "float32", 0, 0.0),
     ("yi-6b-prefill", 4, 4000, 32, 4, 128, "bfloat16", 0, 0.0),
+    ("zamba2-1.2b-prefill", 4, 256, 32, 32, 64, "bfloat16", 0, 0.0),
 ]
-ATTN_TIMED = ("yi-6b-prefill", "bfloat16")
+ATTN_TIMED = ("yi-6b-prefill", "bfloat16")   # the kernels line's shape
+# every timed shape: yi-6b's prefill, gemma2-27b's local layer (the
+# window's tile skip) and zamba2-1.2b's shared block (D = 64, MHA)
+ATTN_TIMED_CASES = (ATTN_TIMED, ("gemma2-27b-local", "bfloat16"),
+                    ("zamba2-1.2b-prefill", "bfloat16"))
 
 
 def live_entries(s: int, window: int) -> int:
@@ -361,15 +367,37 @@ def attention_bound(b, s, h, kh, d, dtype, window) -> dict:
             "bound_bytes": nbytes, "bound_flops": flops}
 
 
-def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
+def attention_inputs(b, s, h, kh, d, dtype, seed):
+    """q (b, s, h, d), k and v (b, s, kh, d), standard normal on the card."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops, ref
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt)
-               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(tdt)
+                 for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+
+
+def library_attention(q, k, v, window: int):
+    """One ``scaled_dot_product_attention`` call on the kernel's inputs
+    (causal; with a window, an explicit boolean mask of the causal window,
+    which takes SDPA off its flash path).  It applies no soft-cap: no
+    PyTorch call does."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v = attention_inputs(b, s, h, kh, d, dtype, seed)
     kw = dict(causal=True, window=window, cap=cap)
 
     def plain():
@@ -391,13 +419,13 @@ def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
     check(torch.equal(got, again), f"{name}/{dtype}: second launch differs")
     check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
           f"{name}/{dtype}: kernel vs plain max abs err {err}")
-    if (name, dtype) == ATTN_TIMED:
+    if (name, dtype) in ATTN_TIMED_CASES:
         rec["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
         rec["plain_ms"] = cuda_ms(plain, 3, 1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        rec["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True), 10)
+        rec["library_ms"] = cuda_ms(library_attention(q, k, v, window), 10)
+        rec["library"] = ("scaled_dot_product_attention, "
+                          + ("boolean window mask, no cap" if window
+                             else "is_causal"))
         rec.update(attention_bound(b, s, h, kh, d, dtype, window))
     del q, k, v, got, again, want
     torch.cuda.empty_cache()
@@ -1132,6 +1160,7 @@ def main(argv=None) -> int:
         "tolerance": {"rtol": RTOL, "atol": ATOL, "total_hops": "exact"},
     }, {
         "name": "flash_attention", "route": "cuda",
+        "design": fa_kernel.DESIGN[torch.bfloat16],
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:88",

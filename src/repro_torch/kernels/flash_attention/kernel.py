@@ -2,8 +2,21 @@
 launch call.
 
 The CUDA source replaces the Pallas kernel of the reference package
-(``src/repro/kernels/flash_attention/kernel.py``); see the note at its
-top for what bounds it and what the design does about that.  This module
+(``src/repro/kernels/flash_attention/kernel.py``) with two designs,
+chosen by dtype, never by size:
+
+* bfloat16 — the tensor cores: a producer warpgroup keeps K and V tiles
+  of 128 rows arriving by TMA (tensor maps built at each launch from the
+  model-layout strides) in a 3-stage ring of 128-byte-swizzled shared
+  memory; two consumer warpgroups of 64 query rows run ``wgmma``
+  (Q·Kᵀ from shared memory, P·V with P from registers), take turns at
+  the tensor cores and overlap each tile's softmax with the previous
+  tile's P·V.  P is rounded to bf16 for P·V, the one rounding the
+  reference does not have; scores, max and sums stay float32.
+* float32 — the CUDA cores in full float32 (no TF32): the arithmetic
+  check of the callers.
+
+The note at the top of the source says what bounds each.  This module
 only describes the arguments and calls ``flash_attention_launch``; it is
 imported freely on machines without a GPU — the library is built and
 loaded at the first launch.
@@ -19,6 +32,9 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)          # the kernel's instantiations
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what each dtype runs on the card (the note at the top of the source)
+DESIGN = {torch.float32: "fma", torch.bfloat16: "wgmma+tma"}
+BF16_KEY_TILE = 128                    # key rows a tile of the bf16 path
 
 
 class FlashParams(ctypes.Structure):

@@ -30,6 +30,19 @@ launch_count = 0
 REF_BK = 512
 
 
+def check_rows_aligned(name: str, x: torch.Tensor) -> None:
+    """The bfloat16 kernel loads ``x`` by TMA, which takes a 16-byte
+    aligned base address and byte strides that are multiples of 16 (the
+    first three dims).  Raises otherwise; the model path's einsum and rope
+    outputs always meet it."""
+    size = x.element_size()
+    if x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:3]):
+        raise ValueError(
+            f"{name}: the bfloat16 kernel needs 16-byte aligned rows (base "
+            f"address {x.data_ptr():#x}, element strides "
+            f"{tuple(x.stride())}); pass a contiguous copy")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     cap: float = 0.0) -> torch.Tensor:
@@ -66,6 +79,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{_kernel.HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_rows_aligned(name, x)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

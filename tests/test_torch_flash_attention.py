@@ -152,3 +152,122 @@ def test_params_struct_describes_model_layout_strides():
     assert (p.k_sb, p.k_st, p.k_sh) == (24 * 2 * 32, 2 * 32, 32)
     assert (p.causal, p.window, p.dtype) == (1, 48, 0)
     assert p.scale == pytest.approx(32 ** -0.5) and p.cap == 50.0
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.ATTN_TOL["bfloat16"]: the limit the card holds the kernel to
+CHIP_BF16_TOL = dict(atol=4e-3, rtol=8e-3)
+LOG2E = 1.4426950408889634
+
+
+def _bf16_kernel_numerics(q, k, v, *, causal, window, cap, tile):
+    """Plain-torch emulation of the bfloat16 kernel, model layout: raw
+    bf16 q.k summed in float32, then scaled to the log2 domain in float32
+    (with a cap, tanh first), masked logits -1e30, the online softmax over
+    key tiles of ``tile`` rows, P rounded to bfloat16 before P.V, l summing
+    the rounded p, output acc / max(l, 1e-30) rounded to bfloat16."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    scale = d ** -0.5
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -1e30)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, t, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        raw = qf @ kt.transpose(-1, -2)
+        if cap:
+            x = torch.tanh(raw * (scale / cap)) * (cap * LOG2E)
+        else:
+            x = raw * (scale * LOG2E)
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((s, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= qpos >= kpos
+        if window:
+            ok &= qpos - kpos < window
+        x = torch.where(ok, x, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new).bfloat16().float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16().transpose(1, 2)
+
+
+BF16_CASES = [  # b, s, h, kh, d, window, cap, the reference's blocks
+    pytest.param(1, 64, 4, 4, 32, 0, 0.0, 32, id="mha"),
+    pytest.param(2, 128, 8, 2, 32, 0, 0.0, 32, id="gqa4"),
+    pytest.param(1, 96, 4, 1, 16, 0, 0.0, 32, id="mqa-d16"),
+    pytest.param(1, 80, 4, 2, 64, 0, 0.0, 32, id="ragged80"),
+    pytest.param(2, 128, 4, 2, 32, 48, 30.0, 32, id="window48-cap30"),
+    pytest.param(1, 1024, 2, 1, 128, 0, 0.0, 512, id="d128-s1024"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,window,cap,blk", BF16_CASES)
+def test_bf16_kernel_numerics_within_chip_tolerance(b, s, h, kh, d, window,
+                                                    cap, blk):
+    """The one rounding the tensor-core kernel adds (P to bf16) keeps it
+    within the card's bf16 limit of the reference's Pallas kernel and of
+    its oracle."""
+    (qj, kj, vj), (qt, kt, vt) = _mk(b * s + d + 3, b, s, h, kh, d,
+                                     "bfloat16")
+    got = _bf16_kernel_numerics(qt, kt, vt, causal=True, window=window,
+                                cap=cap, tile=fa_kernel.BF16_KEY_TILE)
+    want = ref_flash(qj, kj, vj, causal=True, window=window, cap=cap,
+                     bq=blk, bk=blk, interpret=True)
+    oracle = ref_oracle(_bhsd(qj), _bhsd(kj), _bhsd(vj), causal=True,
+                        window=window, cap=cap)
+    np.testing.assert_allclose(_np(got), _np(want), **CHIP_BF16_TOL)
+    np.testing.assert_allclose(_np(got), _bhsd(_np(oracle)), **CHIP_BF16_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,window,cap,blk", BF16_CASES)
+def test_bf16_p_rounding_error_bound(b, s, h, kh, d, window, cap, blk):
+    """Against exact (float64) attention the emulated kernel errs by at
+    most u * sum_j w_j |v_j - o| for P's rounding plus u * |o| for the
+    output's, u = 2**-8 the unit roundoff of bfloat16 (w the softmax
+    weights; |v_j - o| <= |v_j| + |o| below), 1 % for second-order terms."""
+    del blk
+    _, (qt, kt, vt) = _mk(b * s + d + 3, b, s, h, kh, d, "bfloat16")
+    got = _bf16_kernel_numerics(qt, kt, vt, causal=True, window=window,
+                                cap=cap, tile=fa_kernel.BF16_KEY_TILE)
+    qd = qt.double().transpose(1, 2)
+    kd = kt.double().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vd = vt.double().transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    sc = qd @ kd.transpose(-1, -2) * d ** -0.5
+    if cap:
+        sc = torch.tanh(sc / cap) * cap
+    i = torch.arange(s)
+    ok = (i[:, None] >= i[None, :])
+    if window:
+        ok &= i[:, None] - i[None, :] < window
+    w = torch.softmax(sc.masked_fill(~ok, -torch.inf), dim=-1)
+    o = w @ vd
+    u = 2.0 ** -8 * 1.01
+    bound = u * (w @ vd.abs() + o.abs()) + u * o.abs() + 1e-6
+    err = (got.double().transpose(1, 2) - o).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_bf16_rows_must_be_16_byte_aligned():
+    """The bfloat16 kernel's TMA loads take 16-byte aligned rows: the
+    wrapper's check passes the model path's tensors and refuses a view
+    that breaks it."""
+    x = torch.zeros((2, 8, 4, 64), dtype=torch.bfloat16)
+    ops.check_rows_aligned("q", x)                     # contiguous
+    ops.check_rows_aligned("k", x[:, :, 1:3])          # a head slice
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        ops.check_rows_aligned("q", x.view(-1)[4:4 + 2 * 8 * 4 * 60]
+                               .view(2, 8, 4, 60))
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        ops.check_rows_aligned("v", x.view(-1)[1:1 + 2 * 8 * 4 * 63]
+                               .view(2, 8, 4, 63))
