@@ -41,10 +41,13 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 6. ``ssd``     — the SSD kernel against its plain version (the sequential
    recurrence) on the card, float32 and bfloat16: L below, at and above
    the chunk, one head, x / B / C cut from one conv-output tensor with a
-   transposed dt, instant decay (A = -100), and zamba2-1.2b's and
-   mamba2-2.7b's prefill shapes (B=4, L=4096); a second launch must be
-   bit-identical; at mamba2-2.7b's shape the kernel, the plain version
-   and the bound are timed.
+   transposed dt, instant decay (A = -100, which must leave only the
+   local term), the bfloat16 tiling's edges (L ragged against its
+   64-step chunk, N = 4, 8, 16, 36, 100, P = 16 and 128, views only 8-
+   or 2-byte aligned), and zamba2-1.2b's and mamba2-2.7b's prefill
+   shapes (B=4, L=4096); a second launch must be bit-identical; at both
+   prefill shapes the bfloat16 kernel, the plain version and the bound
+   are timed.
 7. ``ssm_model`` — mamba2-2.7b at full width and depth (64 layers),
    random weights of seed 0 widened as in phase 5, 4 prompts of 256
    tokens (numpy, seed 0; two chunks) and 16 new tokens: the last-position
@@ -609,7 +612,8 @@ def model_phase(profile: bool) -> dict:
 # phase 6: the SSD kernel vs its plain version
 # ---------------------------------------------------------------------------
 
-# (name, B, L, H, P, N, chunk, A or None (drawn), x/B/C cut from one tensor)
+# (name, B, L, H, P, N, chunk, A or None (drawn), x/B/C cut from one
+# tensor: False, True, or "odd" one element off its start)
 SSD_CASES = [
     ("l-below-chunk", 1, 48, 2, 16, 16, 128, None, False),
     ("l-at-chunk", 2, 128, 2, 32, 32, 128, None, False),
@@ -617,11 +621,22 @@ SSD_CASES = [
     ("one-head", 1, 256, 1, 64, 128, 128, None, False),
     ("conv-out-views", 2, 256, 4, 64, 128, 128, None, True),
     ("decay-100", 1, 64, 2, 16, 16, 32, -100.0, False),
+    # the bfloat16 tiling's edges: L ragged against its 64-step chunk, N
+    # zero-padded to 16 (4, 36, 100), P = 16 and 128 (one and four
+    # 32-column slices), B and C views only 8-byte aligned, and views
+    # only 2-byte aligned
+    ("p16-n4-ragged", 1, 96, 2, 16, 4, 32, None, False),
+    ("n16-ragged", 2, 160, 3, 32, 16, 32, None, False),
+    ("p128-n100", 1, 200, 2, 128, 100, 8, None, False),
+    ("n36-views", 2, 96, 4, 64, 36, 32, None, True),
+    ("odd-views", 1, 80, 2, 32, 8, 16, None, "odd"),
     ("zamba2-1.2b-prefill", 4, 4096, 64, 64, 64, 128, None, False),
     ("mamba2-2.7b-prefill", 4, 4096, 80, 64, 128, 128, None, False),
 ]
-SSD_TIMED = ("mamba2-2.7b-prefill", "bfloat16")
-SSD_QT = 32                 # the kernel's own chunk (csrc/ssd.cu)
+# timed cases; the first is the kernels line's
+SSD_TIMED = (("mamba2-2.7b-prefill", "bfloat16"),
+             ("zamba2-1.2b-prefill", "bfloat16"))
+SSD_REF_CHUNK = 128         # the reference kernel's chunk (ssd_scan)
 
 
 def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
@@ -629,7 +644,9 @@ def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
     (dt = softplus(normal) float32, A = -exp(0.5 normal), or ``a_value``
     with dt moved up by 0.5); with ``views``
     x, B and C are column slices of one (B, L, H*P + 2N) tensor and dt a
-    transposed view, the layout ``mamba_block`` hands the kernel."""
+    transposed view, the layout ``mamba_block`` hands the kernel; with
+    ``views == "odd"`` the tensor has one more column, before the slices,
+    so that every base address and row stride is odd in elements."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
@@ -640,7 +657,8 @@ def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
         return torch.randn(shape, generator=gen, device="cuda")
 
     if views:
-        conv = randn(b, l, h * p + 2 * n).to(tdt)
+        off = int(views == "odd")
+        conv = randn(b, l, off + h * p + 2 * n).to(tdt)[..., off:]
         x = conv[..., :h * p].reshape(b, l, h, p)
         B, C = conv[..., h * p:h * p + n], conv[..., h * p + n:]
         dt = F.softplus(randn(b, h, l)).transpose(1, 2)
@@ -658,18 +676,21 @@ def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
 
 def ssd_bound(b, l, h, p, n, dtype) -> dict:
     """Least time for one call.  Bytes: x, dt, A, B and C read once, y
-    written once.  Operations: what the kernel's chunked form needs per
-    (b, h) row and chunk of 32 steps — 2(N + P) flops per live (j <= i)
-    score entry (C.B and the score-weighted x), 2NP per step for the
-    carried state's readout and 2NP per step for its update — over the
-    peak rate of the type (bf16 tensor cores; float32 must stay float32,
-    so the CUDA cores' rate)."""
+    written once.  Operations: what the chunked form needs per (b, h) row
+    and chunk, counted at the reference kernel's chunk (``SSD_REF_CHUNK``,
+    128 steps) whatever chunk a design of the kernel takes, so that the
+    bound does not move with the design — 2(N + P) flops per live
+    (j <= i) score entry (C.B and the score-weighted x), 2NP per step for
+    the carried state's readout and 2NP per step for its update — over
+    the peak rate of the type (bf16 tensor cores; float32 must stay
+    float32, so the CUDA cores' rate)."""
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * l * h * p + 2 * b * l * n) * elt + b * l * h * 4 \
         + h * 4
-    chunks = -(-l // SSD_QT)
-    live = SSD_QT * (SSD_QT + 1) // 2
-    flops = b * h * chunks * (live * 2 * (n + p) + 2 * 2 * SSD_QT * n * p)
+    q = min(SSD_REF_CHUNK, l)
+    chunks = -(-l // q)
+    live = q * (q + 1) // 2
+    flops = b * h * chunks * (live * 2 * (n + p) + 2 * 2 * q * n * p)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -701,13 +722,15 @@ def ssd_case(name, b, l, h, p, n, chunk, a_value, views, dtype, seed):
     check(bool(torch.isfinite(g).all()), f"{name}/{dtype}: non-finite y")
     check(torch.allclose(g, w, atol=a_frac * scale, rtol=rtol),
           f"{name}/{dtype}: kernel vs plain max abs err {err}")
-    if a_value is not None and dtype == "float32":
+    if a_value is not None:
         # instant decay leaves the local term y_t = (C_t . B_t) dt_t x_t
-        local = torch.einsum("bln,bln->bl", C, B)[..., None, None] * (
-            x * dt[..., None])
-        check(torch.allclose(g, local, atol=1e-4, rtol=1e-4),
-              f"{name}: history did not vanish")
-    if (name, dtype) == SSD_TIMED:
+        local = torch.einsum("bln,bln->bl", C.float(), B.float())[
+            ..., None, None] * (x.float() * dt[..., None])
+        tol = (dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else
+               dict(atol=a_frac * float(local.abs().max()), rtol=rtol))
+        check(torch.allclose(g, local, **tol),
+              f"{name}/{dtype}: history did not vanish")
+    if (name, dtype) in SSD_TIMED:
         rec["ms"] = cuda_ms(lambda: ops.ssd(x, dt, A, B, C, chunk=chunk), 10)
         rec["plain_ms"] = cuda_ms(lambda: ref.ssd_model_ref(x, dt, A, B, C),
                                   2, 1)
@@ -837,7 +860,9 @@ def recurrent_model(name: str, dtype: str, *, long_len: int = 0,
           f"{name}/{dtype}: driven tokens differ from generate's")
     if long_len:
         long = rng.integers(0, cfg.vocab_size, size=(PROMPTS, long_len))
-        counted_prefill(cfg, params, long[:, :SSD_QT])       # warm-up
+        from repro_torch.kernels.ssd import kernel as ssd_kernel
+        qt = ssd_kernel.CHUNK[getattr(torch, dtype)]   # the kernel's chunk
+        counted_prefill(cfg, params, long[:, :qt])           # warm-up
         last_long, long_s, long_counts = counted_prefill(cfg, params, long)
         check(long_counts == want_counts,
               f"{name}/{dtype}: long prefill launched {long_counts}")
@@ -1143,7 +1168,7 @@ def main(argv=None) -> int:
 
     # -- the kernels line ---------------------------------------------------
     fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
-    sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED)
+    sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED[0])
     lead = full[0]  # minighost on xk7_sparse: the largest accumulators
     kernels = [{
         "name": "mapscore", "route": "cuda",
@@ -1175,6 +1200,7 @@ def main(argv=None) -> int:
                       for k, (a, r) in ATTN_TOL.items()},
     }, {
         "name": "ssd", "route": "cuda",
+        "design": ssd_kernel.DESIGN[torch.bfloat16],
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:68",
         "launches": ssm["bfloat16"]["long_prefill_launches"]["ssd"],

@@ -1,8 +1,18 @@
 """ctypes binding of ``csrc/ssd.cu``: parameter struct and the launch call.
 
 The CUDA source replaces the Pallas kernel of the reference package
-(``src/repro/kernels/ssd/kernel.py``); see the note at its top for what
-bounds it and what the design does about that.  This module only
+(``src/repro/kernels/ssd/kernel.py``) with two designs, chosen by dtype,
+never by size:
+
+* bfloat16 — the tensor cores: ``mma.sync`` m16n8k16 with ``ldmatrix``,
+  one block per (b, h, 32 columns of P), chunks of 64 steps staged by
+  ``cp.async`` in a 2-stage ring; the float32 intermediates (decayed
+  scores, state, weighted x) enter the products as three bf16 parts each,
+  so the products stay float32-exact and only the order of sums differs.
+* float32 — the CUDA cores in full float32: one block per (b, h), chunks
+  of 32 steps; the arithmetic check of the callers.
+
+The note at the top of the source says what bounds each.  This module only
 describes the arguments and calls ``ssd_launch``; it is imported freely
 on machines without a GPU — the library is built and loaded at the first
 launch.
@@ -19,6 +29,10 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 128)          # the kernel's instantiations (P)
 MAX_STATE = 128                        # largest N; N must be a multiple of 4
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# what each dtype runs on the card (the note at the top of the source)
+DESIGN = {torch.float32: "fma", torch.bfloat16: "mma.sync"}
+# each design's own chunk: steps a block scans between state updates
+CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 
 
 class SsdParams(ctypes.Structure):

@@ -191,3 +191,165 @@ def test_params_struct_describes_model_layout_strides():
                                                          l * cd, cd)
     assert (prm.y_sb, prm.y_sl, prm.y_sh) == (l * h * p, h * p, p)
     assert prm.dtype == 0
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 kernel's arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# chip_smoke.SSD_TOL: |k - p| <= a * max|p| + r * |p|, the limit the card
+# holds the kernel to
+CHIP_SSD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2 ** -7)}
+
+
+def split3(t: torch.Tensor):
+    """float32 -> (hi, mid, lo), each a bfloat16 value held in float32,
+    as the kernel splits an operand: hi = bf16(t), mid = bf16(t - hi),
+    lo = bf16(t - hi - mid), both differences exact in float32."""
+    hi = t.bfloat16().float()
+    r = t - hi
+    mid = r.bfloat16().float()
+    lo = (r - mid).bfloat16().float()
+    return hi, mid, lo
+
+
+def _mm3(a, b, *, split_a: bool):
+    """a @ b with the float32 operand (a if ``split_a``, else b) entered
+    as its three bfloat16 parts: three products summed in float32."""
+    if split_a:
+        return sum(part @ b for part in split3(a))
+    return sum(a @ part for part in split3(b))
+
+
+def ssd_split_emulation(x, dt, A, B, C, *, q: int):
+    """The bfloat16 kernel's arithmetic in plain torch, model layout: L
+    zero-padded to chunks of ``q`` steps and N to a multiple of 16; per
+    chunk s = cumsum(dt * A), the scores G = (C B^T) exp(s_i - s_j) dt_j
+    (j <= i, exp evaluated there only), y = G.x + exp(s) (C.S) and
+    S <- exp(s_last) S + B^T (w o x) with w = exp(s_last - s) dt; G, S and
+    w o x enter their products as three bf16 parts (x, B, C are bf16, so
+    each product is exact in float32).  Returns y (b, l, h, p) float32."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    lp, npad = -(-l // q) * q, -(-n // 16) * 16
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, lp - l))
+    dtf = torch.nn.functional.pad(dt.float(), (0, 0, 0, lp - l))
+    Bf = torch.nn.functional.pad(B.float(), (0, npad - n, 0, lp - l))
+    Cf = torch.nn.functional.pad(C.float(), (0, npad - n, 0, lp - l))
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    S = torch.zeros((b, h, npad, p))
+    ys = []
+    for c0 in range(0, lp, q):
+        xs = xf[:, c0:c0 + q].transpose(1, 2)             # (b, h, q, p)
+        d = dtf[:, c0:c0 + q].transpose(1, 2)             # (b, h, q)
+        Bc, Cc = Bf[:, None, c0:c0 + q], Cf[:, None, c0:c0 + q]
+        s = torch.cumsum(d * A[None, :, None], dim=-1)
+        diff = torch.where(tril, s[..., :, None] - s[..., None, :], 0.0)
+        G = (Cc @ Bc.transpose(-1, -2)) * torch.where(
+            tril, torch.exp(diff), 0.0) * d[..., None, :]
+        y = _mm3(G, xs, split_a=True) \
+            + torch.exp(s)[..., None] * _mm3(Cc, S, split_a=False)
+        ys.append(y)
+        last = s[..., -1:]
+        wx = (torch.exp(last - s) * d)[..., None] * xs
+        S = S * torch.exp(last)[..., None] \
+            + _mm3(Bc.transpose(-1, -2), wx, split_a=False)
+    return torch.cat(ys, dim=2).transpose(1, 2)[:, :l]
+
+
+def _within(got, want, dtype):
+    a_frac, rtol = CHIP_SSD_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol,
+                               atol=a_frac * float(np.abs(_np(want)).max()))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_split3_is_exact(seed):
+    """hi + mid + lo == t exactly, every part a bfloat16 value, on seeded
+    float32 values over 60 decades, zeros, and the magnitudes instant
+    decay gives (exp(-100 dt) for dt in [0.5, 0.8], times a score).  lo
+    holds t's bits down to 2**-23 |t|, so it stays normal while |t| >=
+    2**-103; below that it underflows to a bfloat16 subnormal and the sum
+    is off by at most half its spacing, 2**-134."""
+    rng = np.random.default_rng(seed)
+    mags = 10.0 ** rng.uniform(-30, 30, size=4096)
+    vals = rng.choice([-1.0, 1.0], size=4096) * mags
+    decay = np.exp(-100.0 * rng.uniform(0.5, 0.8, size=512)) \
+        * rng.standard_normal(512) * 40
+    t = torch.from_numpy(np.concatenate([vals, decay, np.zeros(8)])
+                         .astype(np.float32))
+    parts = split3(t)
+    for part in parts:
+        assert torch.equal(part.bfloat16().float(), part)
+    total = sum(part.double() for part in parts)
+    normal = t.abs() >= 2.0 ** -103
+    assert torch.equal(total[normal], t.double()[normal])
+    assert (total - t.double()).abs().max() <= 2.0 ** -134
+    assert (~normal).sum() > 0 and normal.sum() > 4000
+    assert (parts[0].abs() >= parts[1].abs()).all()
+
+
+@pytest.mark.parametrize("b,l,h,p,n", [
+    (1, 64, 2, 16, 16),       # one chunk of the kernel's own length
+    (2, 96, 3, 32, 16),       # ragged: 96 against 64
+    (1, 160, 2, 16, 36),      # ragged, N zero-padded to 48
+    (2, 128, 2, 32, 4),       # N = 4 padded to 16, two full chunks
+])
+def test_split_emulation_matches_reference(b, l, h, p, n):
+    """The chunked, split-operand scan at the bfloat16 kernel's chunk
+    against the reference's Pallas kernel (interpret mode, float32 on the
+    same bf16 values; its chunk divides l) within SSD_TOL's float32 limit,
+    and, rounded to bfloat16, against the plain version on bfloat16
+    inputs within SSD_TOL's bfloat16 limit."""
+    q = ssd_kernel.CHUNK[torch.bfloat16]
+    js, ts = _mk(l + n, b, l, h, p, n, "bfloat16")
+    x, dt, A, B, C = ts
+    got = ssd_split_emulation(x, dt, A, B, C, q=q)
+    assert torch.isfinite(got).all()
+    jf = [jnp.asarray(_np(t)) for t in (x, dt, A, B, C)]
+    want = ref_ssd(*jf, chunk=32, interpret=True)
+    _within(got, want, "float32")
+    plain = ref.ssd_model_ref(x, dt, A, B, C)
+    _within(got.bfloat16(), plain, "bfloat16")
+
+
+def test_split_emulation_kernel_layout_oracle():
+    """In the kernel layout (one head a row, dt folded in) the emulation
+    agrees with the reference's oracle ``ssd_ref`` and the port's
+    ``ref.ssd_ref``: y within SSD_TOL's float32 limit."""
+    rng = np.random.default_rng(11)
+    b, l, h, p, n = 2, 192, 2, 16, 32
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p),
+                                             dtype=np.float32)).bfloat16()
+    B, C = (torch.from_numpy(rng.standard_normal((b, l, n), dtype=np.float32))
+            .bfloat16() for _ in range(2))
+    dt = torch.ones((b, l, h))            # x * dt stays bf16-exact
+    A = -torch.from_numpy(rng.uniform(0.05, 1.0, size=h).astype(np.float32))
+    got = ssd_split_emulation(x, dt, A, B, C, q=64)
+    xk = x.float().transpose(1, 2).reshape(b * h, l, p)
+    ak = (dt * A).transpose(1, 2).reshape(b * h, l)
+    Bk = B.float()[:, None].expand(b, h, l, n).reshape(b * h, l, n)
+    Ck = C.float()[:, None].expand(b, h, l, n).reshape(b * h, l, n)
+    want, _ = ref.ssd_ref(xk, ak, Bk, Ck)
+    oracle, _ = ref_oracle(*(jnp.asarray(t.numpy()) for t in (xk, ak, Bk, Ck)))
+    gk = got.transpose(1, 2).reshape(b * h, l, p)
+    _within(gk, want, "float32")
+    _within(gk, oracle, "float32")
+
+
+def test_split_emulation_instant_decay_keeps_local_term():
+    """decay-100: the emulation leaves only y_t = (C_t . B_t) dt_t x_t."""
+    _, (x, dt, A, B, C) = _mk(3, 1, 96, 2, 16, 16, "bfloat16")
+    dt = dt + 0.5
+    A = torch.full((2,), -100.0)
+    got = ssd_split_emulation(x, dt, A, B, C, q=64)
+    local = torch.einsum("bln,bln->bl", C.float(), B.float())[
+        ..., None, None] * (x.float() * dt[..., None])
+    np.testing.assert_allclose(_np(got), _np(local), atol=1e-4, rtol=1e-4)
+
+
+def test_design_names_both_paths():
+    assert ssd_kernel.DESIGN == {torch.float32: "fma",
+                                 torch.bfloat16: "mma.sync"}
+    assert set(ssd_kernel.CHUNK) == set(ssd_kernel.DTYPES)
+    assert ssd_kernel.CHUNK[torch.bfloat16] == 64
