@@ -13,13 +13,18 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 2. ``kernels`` — the mapscore kernel against its plain-torch version on the
    card, both objectives, on small machines, a wrapped seam, zero-length and
    zero-weight messages, a hop-only stack without core columns, and the
-   full-size shapes of phase 3; a second launch must be bit-identical; the
-   kernel, the plain version and (at full size) the bound are timed.
+   full-size shapes of phase 3; a second launch must be bit-identical and
+   the status word clear; an out-of-range edge and a coordinate equal to
+   its dimension must each raise ValueError, and a valid call after them
+   must equal the one before bit for bit; the kernel (under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync), the plain
+   version and (at full size) the bound are timed.
 3. ``serve``   — a ``MappingService`` on ``device="cuda"`` answers four flat
    scenarios of the registry at ``--scale`` tasks (default 2**18) cold, then
    warm, then a batch with a duplicate; every assignment is checked, every
    cold winner is compared with the numpy evaluator's winner on the same
-   candidate stack, and the kernel's launch count must have risen.
+   candidate stack, and the kernel must have launched once per cold
+   request (the whole candidate stack in one launch).
 4. ``attention`` — the flash-attention kernel against its plain-torch
    version on the card: MHA, GQA 4:1 and MQA, ragged S (80; 4000), head
    dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
@@ -132,6 +137,8 @@ SSM_PROMPT_LEN, SSM_LONG_LEN = 256, 4096
 SSM_LOGITS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 OBJECTIVES = {"wh": ("weighted_hops",),
               "latency": ("latency_max", "weighted_hops")}
+# kernel outputs compared exactly with the plain version
+EXACT_KEYS = ("total_hops", "status", "shift")
 
 
 def emit(phase: str, **fields) -> None:
@@ -247,12 +254,13 @@ def compare_case(name, machine, edges_np, w_np, stack_np, *, timed=False,
         want = ref.mapscore_ref(cs, edges, w, inv_bw, **kw)
         torch.cuda.synchronize()
         check(set(got) == set(want), f"{name}: keys differ")
+        check(int(got["status"]) == 0, f"{name}: status {int(got['status'])}")
         for key in got:
             check(torch.equal(got[key], again[key]),
                   f"{name}/{key}: second launch differs from the first")
             g, r = got[key].cpu().numpy(), want[key].cpu().numpy()
-            if key == "total_hops":
-                check(np.array_equal(g, r), f"{name}: total_hops {g} != {r}")
+            if key in EXACT_KEYS:
+                check(np.array_equal(g, r), f"{name}: {key} {g} != {r}")
             else:
                 check(np.allclose(g, r, rtol=RTOL, atol=ATOL),
                       f"{name}/{key}: kernel {g} vs plain {r}")
@@ -265,7 +273,7 @@ def compare_case(name, machine, edges_np, w_np, stack_np, *, timed=False,
         if timed:
             tag = "traffic" if traffic else "hops"
             rec[f"ms_{tag}"] = cuda_ms(
-                lambda: ops.mapscore(cs, edges, w, inv_bw, **kw), 20)
+                lambda: no_sync(ops.mapscore, cs, edges, w, inv_bw, **kw), 20)
             rec[f"plain_ms_{tag}"] = cuda_ms(
                 lambda: ref.mapscore_ref(cs, edges, w, inv_bw, **kw), 5, 1)
             rec.update(bound(machine, cs, edges, w, inv_bw, traffic, tag))
@@ -273,20 +281,77 @@ def compare_case(name, machine, edges_np, w_np, stack_np, *, timed=False,
     return rec
 
 
+def no_sync(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with torch's sync debug mode at "error":
+    any operation that waits for the card raises."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def range_error_cases() -> dict:
+    """An edge index equal to the task count and a coordinate equal to
+    its dimension must each raise ValueError, through the tensor-level
+    wrapper's status word and through ``evaluate_candidates_hopper``;
+    a valid call right after must equal the one before bit for bit
+    (the kernel's scratch is zero again)."""
+    import torch
+    from repro_torch.core.metrics_torch import scoring_inputs
+    from repro_torch.kernels.mapscore import ops
+    _, m, edges_np, w_np, stack_np = small_cases()[2]
+    kw = dict(dims=m.dims, wrap=m.wrap, core_dims=m.core_dims, traffic=True)
+
+    def run(edges_np, stack_np):
+        cs, edges, w, inv_bw = scoring_inputs(m, edges_np, w_np, stack_np,
+                                              True, "cuda")
+        return ops.mapscore(cs, edges, w, inv_bw, **kw)
+
+    before = run(edges_np, stack_np)
+    bad_edges = edges_np.copy()
+    bad_edges[5, 1] = stack_np.shape[1]
+    bad_stack = stack_np.copy()
+    bad_stack[1, edges_np[3, 0], 1] = m.dims[1]
+    raised = {}
+    for case, (e, st) in {"edge": (bad_edges, stack_np),
+                          "coordinate": (edges_np, bad_stack)}.items():
+        status = int(run(e, st)["status"])
+        msgs = []
+        for call in (lambda: ops.raise_for_status(status, m.dims),
+                     lambda: ops.evaluate_candidates_hopper(
+                         m, e, w_np, st, traffic=True, device="cuda")):
+            try:
+                call()
+            except ValueError as exc:
+                msgs.append(str(exc))
+        check(len(msgs) == 2, f"a bad {case} did not raise ValueError")
+        raised[case] = {"status": status, "message": msgs[0]}
+    after = run(edges_np, stack_np)
+    torch.cuda.synchronize()
+    for key in before:
+        check(torch.equal(before[key], after[key]),
+              f"range errors: {key} differs after a faulty launch")
+    return raised
+
+
 def bound(machine, cs, edges, w, inv_bw, traffic, tag) -> dict:
     """Least time the card could take for this call.  Bytes: every input
-    read once, every output written once, over the memory rate.
+    read once (at its element size), every output written once, over the
+    memory rate.
     Operations: the integer work these inputs need (hop arithmetic per
     message and network dim; direction, row key and four adds per
     (message, dim) pair that actually moves; one add and two compares per
     link-accumulator entry) over the fp32 non-tensor rate."""
     nb, ne = cs.shape[0], edges.shape[0]
     nd = machine.ndim - machine.core_dims
-    nbytes = (cs.numel() * 4 + edges.numel() * 8 + w.numel() * 4
-              + nb * (3 * 8 + 8))
+    nbytes = (cs.numel() * cs.element_size()
+              + edges.numel() * edges.element_size()
+              + w.numel() * w.element_size() + nb * (3 * 8 + 8) + 2 * 8)
     ops_n = nb * ne * (4 * nd + 2)
     if traffic:
-        nbytes += inv_bw.numel() * 4
+        nbytes += inv_bw.numel() * inv_bw.element_size()
         src = cs[:, edges[:, 0], :nd]
         dst = cs[:, edges[:, 1], :nd]
         moved = int((src != dst).sum())
@@ -990,6 +1055,11 @@ def profile_phase(problem, scale, rotations) -> None:
     kw = dict(dims=m.dims, wrap=m.wrap, core_dims=m.core_dims, traffic=True)
     ops.mapscore(cs, edges, w, inv_bw, **kw)   # warm-up
     launch = device_profile(lambda: ops.mapscore(cs, edges, w, inv_bw, **kw))
+    # the profiler slows every launch on the host; against an unprofiled
+    # call's CUDA-event time the busy share shows what the device waits
+    ms = cuda_ms(lambda: ops.mapscore(cs, edges, w, inv_bw, **kw), 20)
+    launch["events_ms"] = ms
+    launch["idle_share_vs_events"] = 1.0 - launch["device_busy_us"] * 1e-3 / ms
     cold = get_scenario(SCENARIOS[1], scale=scale,
                         rotations=rotations).request()
     svc = MappingService()
@@ -1064,11 +1134,16 @@ def main(argv=None) -> int:
         _, _, per_cand = ms_kernel.workspace_layout(
             req.alloc.machine.dims, req.alloc.machine.core_dims)
         rec["workspace_bytes_per_candidate"] = per_cand * 8
+        rec["candidates_per_group"] = ops.candidate_chunk(
+            req.alloc.machine, True, nb=len(stack))
         full.append(rec)
     check(any(r["workspace_bytes_per_candidate"] > 232448 for r in full),
           "no full-size machine exceeds one block's shared memory")
+    range_errors = range_error_cases()
     emit("kernels", rtol=RTOL, atol=ATOL, small=small, full=full,
-         timing="median of 20 kernel / 5 plain launches, CUDA events")
+         range_errors=range_errors, design=ms_kernel.DESIGN,
+         timing="median of 20 kernel / 5 plain launches, CUDA events; "
+                "kernel calls under set_sync_debug_mode('error')")
 
     # -- phase 3: serve -----------------------------------------------------
     svc = MappingService()
@@ -1093,10 +1168,7 @@ def main(argv=None) -> int:
             check(np.bincount(t2p, minlength=req.alloc.n).max() == 1,
                   f"{name}: a processor holds two tasks")
         check(np.isfinite(res.score), f"{name}: score {res.score}")
-        traffic = "latency" in name
-        chunk = ops.candidate_chunk(req.alloc.machine, traffic) \
-            or args.rotations
-        expected_launches += -(-args.rotations // chunk)
+        expected_launches += 1  # the whole candidate stack, one launch
         served.append({"scenario": name, "tasks": int(req.graph.n),
                        "edges": int(len(req.graph.edges)),
                        "machine_dims": list(req.alloc.machine.dims),
@@ -1171,7 +1243,7 @@ def main(argv=None) -> int:
     sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED[0])
     lead = full[0]  # minighost on xk7_sparse: the largest accumulators
     kernels = [{
-        "name": "mapscore", "route": "cuda",
+        "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
         "replaces": "src/repro/kernels/mapscore/kernel.py:204",
         "launches": launches,

@@ -1,9 +1,9 @@
 """Architecture registry: a name or alias resolves to its ``ModelConfig``.
 
 The same ten configurations, names and aliases as the reference
-package.  Every config resolves; serving runs only the ``dense`` family
-so far (:mod:`repro_torch.models` raises ``NotImplementedError`` for
-the others).
+package.  Every config resolves; serving runs the ``dense``, ``ssm``
+and ``hybrid`` families so far (:mod:`repro_torch.models` raises
+``NotImplementedError`` for the others).
 """
 
 from __future__ import annotations

@@ -41,9 +41,12 @@ class ServeEngine:
                                     tokens[:, t:t + 1], t)
         return lg[:, 0], cache
 
-    def generate(self, tokens, *, max_new_tokens: int) -> np.ndarray:
+    def generate(self, tokens, *, max_new_tokens: int,
+                 extras: dict | None = None) -> np.ndarray:
         """Greedy continuation of ``tokens`` (B, prompt_len): int32
-        (B, max_new_tokens) on the host."""
+        (B, max_new_tokens) on the host.  ``extras`` join the prefill's
+        inputs beside the tokens on the attention path, as in the
+        reference; the recurrent ingest does not read them."""
         cfg = self.cfg
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                  device=self.device)
@@ -52,7 +55,8 @@ class ServeEngine:
             if cfg.family in ("ssm", "hybrid"):
                 last_logits, cache = self._ingest_recurrent(tokens)
             else:
-                lg, cache = prefill(cfg, self.params, {"tokens": tokens},
+                inputs = {"tokens": tokens, **(extras or {})}
+                lg, cache = prefill(cfg, self.params, inputs,
                                     max_seq=self.max_seq)
                 last_logits = lg[:, -1]
             out = [torch.argmax(last_logits, dim=-1)]

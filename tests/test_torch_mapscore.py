@@ -206,8 +206,9 @@ def test_workspace_layout_and_fixed_point_scale():
     dims, core = (32, 32, 32, 16), 1
     rows, off, total = ms_kernel.workspace_layout(dims, core)
     assert rows == [32 * 32 * 16] * 3
-    assert off == [0, 2 * 33 * rows[0], 4 * 33 * rows[0]]
-    assert total == 6 * 33 * rows[0]
+    # (s_k, rows_k) per direction: no dump column
+    assert off == [0, 2 * 32 * rows[0], 4 * 32 * rows[0]]
+    assert total == 6 * 32 * rows[0]
     assert total * 8 > 232448  # far past one block's shared memory
     # no sum can reach 2**62: every message at the largest hop count
     for wsum in (1e-3, 1.0, 3.7e6, 2.0 ** 40):
@@ -308,3 +309,216 @@ def test_kernel_modules_import_without_toolchain():
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(_build.KernelBuildFailure, match="nvcc not found"):
             _build.find_nvcc()
+
+
+# --- the kernel's host side: shift, status word, candidate groups -------
+
+L2_BYTES = 50 << 20  # the H100's L2 cache
+FULL_SIZE_MACHINES = {  # (dims, core_dims) of the registry at 2^18 tasks
+    "xk7_sparse": ((32, 32, 32, 16), 1),
+    "bgq_block": ((16, 8, 8, 8, 2, 16), 1),
+    "tpu_mesh": ((512, 512), 0),
+}
+
+
+@pytest.mark.parametrize("weights", ["seeded", "none", "tiny", "huge"])
+def test_wrapper_shift_is_fixed_point_shift_of_the_abs_weight_sum(weights):
+    machine = compat.machine(MACHINES[3])
+    stack, edges, w = _random_problem(machine, 4, ne=500)
+    w = {"seeded": w, "none": None, "tiny": w * 1e-30,
+         "huge": w * 1e30}[weights]
+    cs, e, wt, inv_bw = scoring_inputs(machine, edges, w, stack, True, "cpu")
+    got = ms_ops.mapscore(cs, e, wt, inv_bw, dims=machine.dims,
+                          wrap=machine.wrap, core_dims=machine.core_dims,
+                          traffic=True)
+    w32 = (np.ones(len(edges)) if w is None else w).astype(np.float32)
+    want = ms_kernel.fixed_point_shift(
+        np.abs(w32).sum(dtype=np.float64), machine.dims, machine.core_dims)
+    assert got["shift"].dtype == torch.int64 and got["shift"].dim() == 0
+    assert int(got["shift"]) == want
+    assert int(got["status"]) == 0
+    if w is None:  # every weight 1: the sum is the message count
+        assert want == ms_kernel.fixed_point_shift(
+            float(len(edges)), machine.dims, machine.core_dims)
+
+
+@pytest.mark.parametrize("abs_sum", [0.0, 1e-30, 1.0, 3.7e6, 2.0 ** 40,
+                                     1e300, float("inf"), float("nan")])
+def test_plain_shift_agrees_with_fixed_point_shift(abs_sum):
+    """The plain version's shift (its own frexp of the float64 |w| sum
+    times the hop span) is the kernel module's ``fixed_point_shift``."""
+    dims, core = (32, 32, 32, 16), 1
+    got = ms_ref.shift_of(abs_sum, ms_kernel.hop_span(dims, core))
+    if not np.isfinite(abs_sum):
+        assert got == ms_kernel.SHIFT_NONE
+        with pytest.raises(ValueError, match="finite"):
+            ms_kernel.fixed_point_shift(abs_sum, dims, core)
+    else:
+        assert got == ms_kernel.fixed_point_shift(abs_sum, dims, core)
+
+
+@pytest.mark.parametrize("empty", ["no-messages", "no-candidates"])
+def test_empty_calls_score_zero_and_check_nothing(empty):
+    """With no messages or no candidates the wrapper launches nothing on
+    the card, so the plain version checks nothing either: every output,
+    the status and the shift are zero, a bad coordinate included."""
+    machine = compat.machine(MACHINES[2])
+    stack, edges, w = _random_problem(machine, 6)
+    stack = stack.copy()
+    stack[0, 0, 0] = machine.dims[0]  # out of range
+    if empty == "no-messages":
+        edges, w = edges[:0], w[:0]
+    else:
+        stack = stack[:0]
+    cs, e, wt, inv_bw = scoring_inputs(machine, edges, w, stack, True, "cpu")
+    kw = dict(dims=machine.dims, wrap=machine.wrap,
+              core_dims=machine.core_dims, traffic=True)
+    for ev in (ms_ops.mapscore(cs, e, wt, inv_bw, **kw),
+               ms_ref.mapscore_ref(cs, e, wt, inv_bw, **kw)):
+        assert int(ev["status"]) == 0 and int(ev["shift"]) == 0
+        assert ev["total_hops"].dtype == torch.int64
+        for key in ("weighted_hops", "total_hops", "data_max",
+                    "latency_max"):
+            assert ev[key].shape == (len(stack),) and not ev[key].any()
+
+
+def test_status_word_decodes_to_the_wrappers_messages():
+    dims = (4, 5, 3, 2)
+    assert ms_kernel.status_error(0, dims) is None
+    assert (ms_kernel.status_error(ms_kernel.ST_EDGE, dims)
+            == "edges index outside the task range")
+    for j, d in enumerate(dims):
+        assert (ms_kernel.status_error(ms_kernel.ST_COL0 << j, dims)
+                == f"coord_stack column {j} leaves [0, {d})")
+    assert (ms_kernel.status_error(ms_kernel.ST_WEIGHT, dims)
+            == "message weights must be finite")
+    # several faults: the first in the order the inputs are checked
+    every = ms_kernel.ST_EDGE | (ms_kernel.ST_COL0 << 2) | ms_kernel.ST_WEIGHT
+    assert ms_kernel.status_error(every, dims).startswith("edges index")
+    assert ms_kernel.status_error((ms_kernel.ST_COL0 << 3)
+                                  | ms_kernel.ST_WEIGHT,
+                                  dims) == "coord_stack column 3 leaves [0, 2)"
+    with pytest.raises(ValueError, match="column 1 leaves"):
+        ms_ops.raise_for_status(torch.tensor(ms_kernel.ST_COL0 << 1), dims)
+    ms_ops.raise_for_status(torch.tensor(0), dims)
+
+
+@pytest.mark.parametrize("fault", ["edge-high", "edge-negative",
+                                   "coord-at-dim", "coord-negative",
+                                   "weight-inf"])
+def test_faulty_inputs_raise_the_status_error(fault):
+    machine = compat.machine(MACHINES[2])  # (4, 5, 3)
+    stack, edges, w = _random_problem(machine, 6)
+    stack, edges, w = stack.copy(), edges.copy(), w.copy()
+    if fault == "edge-high":
+        edges[7, 1] = stack.shape[1]
+        msg, bit = "edges index outside the task range", ms_kernel.ST_EDGE
+    elif fault == "edge-negative":
+        edges[3, 0] = -1
+        msg, bit = "edges index outside the task range", ms_kernel.ST_EDGE
+    elif fault == "coord-at-dim":
+        stack[2, edges[5, 0], 1] = machine.dims[1]
+        msg = r"coord_stack column 1 leaves \[0, 5\)"
+        bit = ms_kernel.ST_COL0 << 1
+    elif fault == "coord-negative":
+        stack[0, edges[9, 1], 2] = -1
+        msg = r"coord_stack column 2 leaves \[0, 3\)"
+        bit = ms_kernel.ST_COL0 << 2
+    else:
+        w[4] = np.inf
+        msg, bit = "message weights must be finite", ms_kernel.ST_WEIGHT
+    cs, e, wt, inv_bw = scoring_inputs(machine, edges, w, stack, True, "cpu")
+    ev = ms_ops.mapscore(cs, e, wt, inv_bw, dims=machine.dims,
+                         wrap=machine.wrap, core_dims=machine.core_dims,
+                         traffic=True)
+    assert int(ev["status"]) == bit
+    with pytest.raises(ValueError, match=msg):
+        ms_ops.evaluate_candidates_hopper(machine, edges, w, stack,
+                                          traffic=True, device="cpu")
+
+
+def test_every_coordinate_is_checked_not_only_gathered_ones():
+    """The kernel's first pass checks the whole coordinate stack, as the
+    wrapper's host-side check did: a task that no message touches
+    raises too."""
+    machine = compat.machine(MACHINES[2])
+    stack, edges, w = _random_problem(machine, 6, ne=20)
+    idle = np.setdiff1d(np.arange(stack.shape[1]), edges)
+    assert len(idle)
+    bad = stack.copy()
+    bad[3, idle[0], 0] = machine.dims[0]
+    with pytest.raises(ValueError, match=r"column 0 leaves \[0, 4\)"):
+        ms_ops.evaluate_candidates_hopper(machine, edges, w, bad,
+                                          traffic=True, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(FULL_SIZE_MACHINES))
+@pytest.mark.parametrize("traffic", [False, True], ids=["hops", "traffic"])
+def test_candidate_groups_fit_l2_and_cover_each_candidate_once(name,
+                                                               traffic):
+    """The kernel's groups cover every candidate once, in order; with
+    traffic a group's link accumulators fit the L2 cache, and a stack of
+    8 splits into at least four groups (so that most reduces run beside
+    the next group's accumulate)."""
+    dims, core = FULL_SIZE_MACHINES[name]
+    machine = compat.machine(R.make_machine(dims, wrap=True,
+                                            core_dims=core))
+    _, _, per_cand = ms_kernel.workspace_layout(dims, core)
+    for nb in (1, 3, 8, 13):
+        per_group = ms_kernel.group_size(per_cand if traffic else 0, nb,
+                                         ms_ops.GROUP_ELEMS)
+        groups = ms_kernel.candidate_groups(nb, per_group)
+        seen = [c for g in groups for c in g]
+        assert seen == list(range(nb))  # each once, in order
+        assert all(1 <= len(g) <= ms_kernel.GROUP_MAX for g in groups)
+        if not traffic:
+            assert len(groups) == -(-nb // ms_kernel.GROUP_MAX)
+            continue
+        assert per_group * per_cand * 8 <= L2_BYTES
+        if nb >= ms_kernel.PIPELINE_GROUPS:
+            assert len(groups) >= ms_kernel.PIPELINE_GROUPS
+    if traffic:  # two of a stack of 8 on every full-size machine
+        assert ms_ops.candidate_chunk(machine, True, nb=8) == 2
+        assert ms_ops.candidate_chunk(machine, True, nb=32) == {
+            "xk7_sparse": 2, "bgq_block": 2, "tpu_mesh": 6}[name]
+
+
+def test_pack_and_unpack_round_trip_the_plain_results():
+    machine = compat.machine(MACHINES[4])
+    stack, edges, w = _random_problem(machine, 9)
+    cs, e, wt, inv_bw = scoring_inputs(machine, edges, w, stack, True, "cpu")
+    kw = dict(dims=machine.dims, wrap=machine.wrap,
+              core_dims=machine.core_dims, traffic=True)
+    want = ms_ref.mapscore_ref(cs, e, wt, inv_bw, **kw)
+    got = ms_ops.unpack(ms_ops.pack(want, len(stack)), len(stack), True)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    # the group bound is the kernel's: the plain version ignores it
+    before = ms_ops.launch_count
+    other = ms_ops.unpack(ms_ops._scores(cs, e, wt, inv_bw, **kw,
+                                         group_elems=1), len(stack), True)
+    assert ms_ops.launch_count == before
+    for key in want:
+        assert torch.equal(other[key], want[key]), key
+
+
+@pytest.mark.parametrize("name", sorted(FULL_SIZE_MACHINES))
+def test_row_strides_give_the_plain_row_key(name):
+    """The kernel's row key (sum of coordinate times stride) is the
+    mixed-radix key the plain router folds over the other dims."""
+    dims, core = FULL_SIZE_MACHINES[name]
+    rng = np.random.default_rng(11)
+    src = np.stack([rng.integers(0, d, 64) for d in dims], axis=1)
+    dst = np.stack([rng.integers(0, d, 64) for d in dims], axis=1)
+    rows, _, _ = ms_kernel.workspace_layout(dims, core)
+    for k, st in enumerate(ms_kernel.row_strides(dims, core)):
+        assert st[k] == 0
+        want = np.zeros(64, dtype=np.int64)
+        for j in range(len(dims)):
+            if j != k:
+                want = want * dims[j] + (dst[:, j] if j < k else src[:, j])
+        got = sum((dst[:, j] if j < k else src[:, j]) * st[j]
+                  for j in range(len(dims)))
+        assert np.array_equal(got, want)
+        assert want.max() < rows[k]

@@ -281,6 +281,23 @@ def test_serve_engine_generates_the_reference_tokens(name, impl):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("name", ["yi_6b", "mamba2_2p7b"])
+def test_serve_engine_takes_extras_as_the_reference_does(name):
+    """``generate(..., extras=)`` is accepted on both paths: merged into
+    the prefill's inputs on the attention path, unread by the recurrent
+    ingest — as in the reference."""
+    ref_cfg, rp, cfg, tp = _both(name)
+    toks = _tokens(cfg, s=24)
+    want = RefServeEngine(ref_cfg, rp, max_seq=32, batch=2).generate(
+        toks, max_new_tokens=4, extras={})
+    got = ServeEngine(cfg, tp, max_seq=32, batch=2, device="cpu").generate(
+        toks, max_new_tokens=4, extras={})
+    np.testing.assert_array_equal(got, want)
+    plain = ServeEngine(cfg, tp, max_seq=32, batch=2, device="cpu").generate(
+        toks, max_new_tokens=4)
+    np.testing.assert_array_equal(got, plain)
+
+
 def test_generated_tokens_match_the_full_forward():
     """Greedy decode over the cache agrees with the argmax of one full
     forward pass over prompt + generated tokens (quadratic oracle)."""
