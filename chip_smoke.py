@@ -13,18 +13,30 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 2. ``kernels`` — the mapscore kernel against its plain-torch version on the
    card, both objectives, on small machines, a wrapped seam, zero-length and
    zero-weight messages, a hop-only stack without core columns, and the
-   full-size shapes of phase 3; a second launch must be bit-identical and
+   full-size shapes of ``serve``; a second launch must be bit-identical and
    the status word clear; an out-of-range edge and a coordinate equal to
    its dimension must each raise ValueError, and a valid call after them
    must equal the one before bit for bit; the kernel (under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync), the plain
    version and (at full size) the bound are timed.
-3. ``serve``   — a ``MappingService`` on ``device="cuda"`` answers four flat
-   scenarios of the registry at ``--scale`` tasks (default 2**18) cold, then
-   warm, then a batch with a duplicate; every assignment is checked, every
-   cold winner is compared with the numpy evaluator's winner on the same
-   candidate stack, and the kernel must have launched once per cold
-   request (the whole candidate stack in one launch).
+3. ``partition`` — the device partitioner (``core/partition_torch.py``)
+   against the host numpy engine, bit for bit, on both sides of the
+   rotation sweeps of the four served scenarios at ``--scale`` tasks
+   (default 2**18), a weighted sweep (task weights from seed 0: segscan
+   once a level), a Hilbert one, an uneven-prime one (10800 parts) and a
+   small cloud of mixed -0.0 / 0.0 coordinates under FZ and Gray; a rerun
+   must be bit-identical, every sweep after its upload runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the device and host
+   times are kept; then segscan against its plain version, exactly, at
+   the weighted sweep's shape (first-level and random segments), timed
+   beside ``torch.cumsum`` with its bound.
+   ``serve``   — a ``MappingService`` with the default config (device
+   partitioner, one-pass fused sweep, ``device="cuda"``) answers the four
+   scenarios and a weighted one cold: each takes the fused path with one
+   kernel launch (segscan once a level for the weighted one) and serves
+   the host-engine candidate that the numpy evaluator picks; then warm,
+   a batch with a duplicate, and each scenario with ``fused="off"`` (the
+   staged device path, same answers) for its stage timings.
 4. ``attention`` — the flash-attention kernel against its plain-torch
    version on the card: MHA, GQA 4:1 and MQA, ragged S (80; 4000), head
    dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
@@ -68,7 +80,8 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 
 With ``--profile`` three more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
-of one mapscore launch at the largest shape and one more cold request,
+of one mapscore launch at the largest shape and one more cold request
+(the fused path),
 and of one bfloat16 prefill and one decode step of yi-6b and of
 mamba2-2.7b.
 
@@ -365,23 +378,234 @@ def bound(machine, cs, edges, w, inv_bw, traffic, tag) -> dict:
             f"bound_ops_{tag}": int(ops_n)}
 
 
-def full_size_problem(name, scale, rotations):
-    """The candidate stack the serve phase's request ``name`` scores:
-    (request, pipeline, results, numpy coordinate stack)."""
+def full_size_problem(name, scale, rotations, weights_seed=None) -> dict:
+    """The candidate stack the serve phase's request ``name`` scores,
+    from the host engine (``partition_backend="numpy"``): the request,
+    the pipeline, the candidates' results and numpy coordinate stack,
+    the seconds the host sweep took, and per side the partitioner call
+    with its host part numbers and seconds.  ``weights_seed``: the
+    request carries task weights, uniform in [0.5, 2) from that seed."""
     import numpy as np
+    from repro_torch.core.orderings import order_points_batched
     from repro_torch.mapping import rotation_candidates, shared_pipeline
     from repro_torch.serve import get_scenario
-    req = get_scenario(name, scale=scale, rotations=rotations).request()
+    from repro_torch.serve.engine import MappingRequest
+    req = get_scenario(name, scale=scale, rotations=rotations,
+                       partition_backend="numpy").request()
+    weights = None
+    if weights_seed is not None:
+        weights = np.random.default_rng(weights_seed).uniform(
+            0.5, 2.0, size=req.graph.n)
+        req = MappingRequest(req.graph, req.alloc, req.config,
+                             task_weights=weights)
     pipe = shared_pipeline(req.config)
     pc = pipe.machine_coords(req.alloc)
     tc = np.asarray(req.graph.coords, dtype=np.float64)
     cands = rotation_candidates(tc.shape[1], pc.shape[1],
                                 req.config.rotations)
+    plan = pipe.sweep_plan(tc, pc, cands, weights)
+    sides = {"task": plan.task, "proc": plan.proc}
+    host = {}
+    for side, kw in sides.items():
+        t0 = time.perf_counter()
+        mu = order_points_batched(**kw, backend="vectorized")
+        host[side] = (mu, time.perf_counter() - t0)
     t0 = time.perf_counter()
-    results = pipe.map_candidates(tc, pc, cands)
+    results = pipe.map_candidates(tc, pc, cands, task_weights=weights)
     part_s = time.perf_counter() - t0
     stack = np.stack([req.alloc.coords[r.task_to_proc] for r in results])
-    return req, pipe, results, stack, part_s
+    return {"req": req, "pipe": pipe, "results": results, "stack": stack,
+            "part_s": part_s, "sides": sides, "host": host}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the device partitioner vs the host engine
+# ---------------------------------------------------------------------------
+
+FP64_OPS_PER_S = 34e12      # H100 SXM data sheet, float64 outside the
+                            # tensor cores (the guide's table has no fp64)
+
+
+def partition_case(name, kw, host=None) -> dict:
+    """The device engine on the card against the host engine on one
+    partitioner call: bit for bit, a rerun bit for bit, and the whole
+    sweep after the upload under ``set_sync_debug_mode("error")``.
+    ``host``: the host engine's (part numbers, seconds) if already run."""
+    import torch
+    from repro_torch.core.orderings import order_points_batched
+    from repro_torch.core.partition_torch import run, upload
+    from repro_torch.kernels.segscan import ops as seg_ops
+    if host is None:
+        t0 = time.perf_counter()
+        host = (order_points_batched(**kw, backend="vectorized"),
+                time.perf_counter() - t0)
+    want, host_s = host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inp = upload(**kw, device="cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    n0 = seg_ops.launch_count
+    t0 = time.perf_counter()
+    got = no_sync(run, inp)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = seg_ops.launch_count - n0
+    again = no_sync(run, inp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_h = got.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    nb, n = inp.shape
+    rec = {"case": name, "sfc": kw["sfc"], "n": n, "candidates": nb,
+           "dims": int(inp.cols.shape[0]), "nparts": int(kw["nparts"]),
+           "weighted": kw.get("weights") is not None,
+           "uneven_prime": bool(kw.get("uneven_prime")),
+           "levels": inp.levels if kw["sfc"] != "H" else 0,
+           "host_s": host_s, "upload_s": upload_s, "first_s": first_s,
+           "copy_s": copy_s, "segscan_launches": launches}
+    check(torch.equal(got, again), f"{name}: a rerun differs")
+    ndiff = int((got_h != want).sum())
+    check(got_h.shape == want.shape and ndiff == 0,
+          f"{name}: {ndiff} part numbers differ from the host engine")
+    rec["device_ms"] = cuda_ms(lambda: run(inp), 5, 1)
+    return rec
+
+
+def signed_zero_cloud():
+    """A small cloud of integer coordinates in [-2, 2] where half of the
+    zeros are -0.0: under FZ and Gray flips the sort keys mix -0.0 and
+    0.0, which a radix sort on the card orders unless the engine adds
+    0.0 (the CPU's comparison sort ties them whatever the key)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    pts = rng.integers(-2, 3, size=(4096, 3)).astype(np.float64)
+    flip = rng.random(pts.shape) < 0.5
+    pts[flip] = -pts[flip]
+    zeros = pts[pts == 0]
+    check(np.signbit(zeros).any() and (~np.signbit(zeros)).any(),
+          "the signed-zero cloud lacks -0.0 or 0.0")
+    return pts
+
+
+def segscan_bound(n: int, segments: int, longest: int) -> dict:
+    """Least time of one call: w and seg_start read once, seg_size read
+    at each segment's first position and the sums written once (24 bytes
+    a position and 8 a segment) over the memory rate, or one float64 add
+    per position after each segment's first over the float64 rate.
+    Beside it, not folded in: ``chain_adds``, the dependent adds of the
+    longest segment, which no order-preserving scheme runs in parallel."""
+    nbytes = 24 * n + 8 * segments
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n - segments) / FP64_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_flops": n - segments,
+            "chain_adds": longest - 1}
+
+
+def segscan_cases(nb: int, n: int) -> list:
+    """The kernel against its plain version, exactly, at the weighted
+    sweep's shape (``nb`` candidates of ``n`` points): the first level's
+    segments (one a candidate; timed, with ``torch.cumsum`` over the
+    rows, the one call computing the same sums in another order) and a
+    deeper level's (random lengths 1..200).  Weights spread over twelve
+    decades, so any other order of the adds changes last bits."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segscan import ops, ref
+    rng = np.random.default_rng(0)
+    N = nb * n
+    w = torch.from_numpy(rng.random(N) * 10.0 ** rng.uniform(-6, 6, N)
+                         ).to("cuda")
+    pos = np.arange(N, dtype=np.int64)
+    lens = rng.integers(1, 201, size=N // 100 + 1)
+    ends = np.minimum(np.cumsum(lens), N)
+    starts = np.concatenate([[0], ends[:-1]])
+    keep = starts < N
+    starts, ends = starts[keep], ends[keep]
+    ends[-1] = N
+    mixed = (np.repeat(starts, ends - starts), np.repeat(ends - starts,
+                                                          ends - starts))
+    layouts = {"first-level": ((pos // n) * n, np.full(N, n)),
+               "random-1..200": mixed}
+    out = []
+    for name, (st, sz) in layouts.items():
+        st = torch.from_numpy(np.ascontiguousarray(st, dtype=np.int64)
+                              ).to("cuda")
+        sz = torch.from_numpy(np.ascontiguousarray(sz, dtype=np.int64)
+                              ).to("cuda")
+        n0 = ops.launch_count
+        got = no_sync(ops.segscan, w, st, sz)
+        again = no_sync(ops.segscan, w, st, sz)
+        torch.cuda.synchronize()
+        check(ops.launch_count == n0 + 2, f"segscan/{name}: no launch")
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        want = ref.segscan_ref(w, st, sz)
+        t1.record()
+        t1.synchronize()
+        segments = int((st == torch.arange(N, device="cuda")).sum())
+        rec = {"case": name, "n": N, "segments": segments,
+               "max_abs_err": float((got - want).abs().max()),
+               "plain_ms": t0.elapsed_time(t1)}
+        check(torch.equal(got, again), f"segscan/{name}: a rerun differs")
+        check(torch.equal(got, want),
+              f"segscan/{name}: kernel differs from its plain version")
+        if name == "first-level":
+            rows = w.view(nb, n)
+            rec["cumsum_differs"] = int(
+                (torch.cumsum(rows, 1).reshape(-1) != got).sum())
+            rec["ms"] = cuda_ms(lambda: ops.segscan(w, st, sz), 10)
+            rec["library_ms"] = cuda_ms(lambda: torch.cumsum(rows, 1), 10)
+            rec["library"] = "torch.cumsum over the (nb, n) rows"
+            rec.update(segscan_bound(N, segments, int(sz.max())))
+            rec["ns_per_chain_add"] = rec["ms"] * 1e6 / rec["chain_adds"]
+        out.append(rec)
+        del st, sz, got, again, want
+    return out
+
+
+def partition_phase(problems, weighted, scale) -> dict:
+    """Every partitioner call of the four served scenarios, both sides,
+    plus a weighted sweep (segscan), a Hilbert one, an uneven-prime one
+    and the signed-zero cloud under FZ and Gray, on the card against the
+    host engine; then segscan against its plain version."""
+    import numpy as np
+    from repro_torch.kernels.segscan import ops as seg_ops
+    cases = []
+    seg_ops.launch_count = 0
+    for name, prob in problems.items():
+        for side, kw in prob["sides"].items():
+            cases.append(partition_case(f"{name}@{scale}/{side}", kw,
+                                        prob["host"][side]))
+    check(seg_ops.launch_count == 0, "an unweighted sweep launched segscan")
+    wkw = weighted["sides"]["task"]
+    cases.append(partition_case(f"weighted@{scale}/task", wkw,
+                                weighted["host"]["task"]))
+    got = cases[-1]["segscan_launches"]
+    check(got == cases[-1]["levels"] > 0,
+          f"the weighted sweep launched segscan {got} times, expected one "
+          f"a level ({cases[-1]['levels']})")
+    tkw = next(iter(problems.values()))["sides"]["task"]
+    cases.append(partition_case(f"hilbert@{scale}/task",
+                                {**tkw, "sfc": "H"}))
+    cases.append(partition_case(f"uneven-prime-10800@{scale}/task",
+                                {**tkw, "nparts": 10800,
+                                 "uneven_prime": True}))
+    pts = signed_zero_cloud()
+    perms = np.array([[0, 1, 2], [2, 0, 1], [1, 2, 0]])
+    for sfc in ("FZ", "Gray"):
+        for weights in (None, np.linspace(0.5, 2.0, len(pts))):
+            cases.append(partition_case(
+                f"signed-zeros/{sfc}" + ("/weighted" if weights is not None
+                                         else ""),
+                dict(coords=pts, nparts=64, sfc=sfc, dim_orders=perms,
+                     weights=weights, longest_dim=True,
+                     uneven_prime=False)))
+    seg = segscan_cases(len(wkw["dim_orders"]), len(wkw["coords"]))
+    return {"cases": cases, "segscan": seg}
 
 
 # ---------------------------------------------------------------------------
@@ -1044,11 +1268,13 @@ def by_class(prof: dict, top: int = 8) -> dict:
 
 def profile_phase(problem, scale, rotations) -> None:
     """One kernel launch at the lead shape, pass by pass, and one cold
-    request through a fresh service: device time by name, idle share."""
+    request through a fresh service (the default config: the device
+    partitioner and the one-pass fused sweep): device time by name, idle
+    share."""
     from repro_torch.core.metrics_torch import scoring_inputs
     from repro_torch.kernels.mapscore import ops
     from repro_torch.serve import MappingService, get_scenario
-    req, _, _, stack, _ = problem
+    req, stack = problem["req"], problem["stack"]
     m = req.alloc.machine
     cs, edges, w, inv_bw = scoring_inputs(
         m, req.graph.edges, req.graph.weights, stack, True, "cuda")
@@ -1066,6 +1292,213 @@ def profile_phase(problem, scale, rotations) -> None:
     request = device_profile(lambda: svc.map(cold))
     emit("profile", kernel_launch=launch, cold_request=request,
          scenario=SCENARIOS[1], scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (serve): MappingService on the device partitioner, fused
+# ---------------------------------------------------------------------------
+
+def check_answer(name, req, res) -> None:
+    """A served assignment is a valid one (with task weights a part may
+    hold several tasks or none, so only then may a processor hold two)."""
+    import numpy as np
+    check("degraded" not in res.stats, f"{name}: degraded answer")
+    t2p = np.asarray(res.task_to_proc)
+    check(t2p.shape == (req.graph.n,), f"{name}: shape {t2p.shape}")
+    check(t2p.min() >= 0 and t2p.max() < req.alloc.n,
+          f"{name}: assignment leaves the allocation")
+    if req.graph.n == req.alloc.n and req.task_weights is None:
+        check(np.bincount(t2p, minlength=req.alloc.n).max() == 1,
+              f"{name}: a processor holds two tasks")
+    check(np.isfinite(res.score), f"{name}: score {res.score}")
+
+
+def serve_phase(problems, weighted, scale, rotations) -> dict:
+    """Cold requests of the four scenarios and a weighted one through a
+    ``MappingService`` with the default config (device partitioner, the
+    one-pass fused sweep, K1): each must take the fused path, launch K1
+    once (and segscan once a level for the weighted one) and serve the
+    host-engine candidate the numpy evaluator picks.  Then warm answers,
+    a batch with a duplicate, and each scenario once more with
+    ``fused="off"`` (the staged device path) for its stage timings."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.metrics import evaluate_candidates_numpy
+    from repro_torch.core.signature import array_digest, mapping_signature
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mapscore import ops
+    from repro_torch.kernels.segscan import ops as seg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.serve import MappingService, get_scenario
+    from repro_torch.serve.engine import MappingRequest
+
+    svc = MappingService()
+    reqs = [get_scenario(n, scale=scale, rotations=rotations).request()
+            for n in SCENARIOS]
+    wname = SCENARIOS[0] + "+weights"
+    wreq = MappingRequest(reqs[0].graph, reqs[0].alloc, reqs[0].config,
+                          task_weights=weighted["req"].task_weights)
+    names = list(SCENARIOS) + [wname]
+    refs = [problems[n.rsplit("-", 1)[0]] for n in SCENARIOS] + [weighted]
+    objs = [OBJECTIVES[n.rsplit("-", 1)[1]] for n in SCENARIOS] + \
+        [OBJECTIVES["wh"]]
+    # the main path's only
+    ops.launch_count = fa_ops.launch_count = ssd_ops.launch_count = 0
+    seg_ops.launch_count = 0
+    served = []
+    for name, req in zip(names, reqs + [wreq]):
+        k1, seg = ops.launch_count, seg_ops.launch_count
+        resp = svc.map(req)
+        torch.cuda.synchronize()
+        check(resp.status == "cold", f"{name}: first answer {resp.status}")
+        res = resp.result
+        check_answer(name, req, res)
+        check(res.stats.get("fused") is True, f"{name}: not fused")
+        check(res.stats["partition_backend"] == "torch",
+              f"{name}: partitioned by {res.stats['partition_backend']}")
+        check(res.stats["fused_score_backend"] == "hopper",
+              f"{name}: scored by {res.stats['fused_score_backend']}")
+        check(ops.launch_count == k1 + 1,
+              f"{name}: {ops.launch_count - k1} K1 launches, expected 1")
+        served.append({"scenario": name, "tasks": int(req.graph.n),
+                       "edges": int(len(req.graph.edges)),
+                       "machine_dims": list(req.alloc.machine.dims),
+                       "weighted": req.task_weights is not None,
+                       "cold_s": resp.latency_s, "score": res.score,
+                       "rotation": res.rotation,
+                       "winner_index": res.stats["winner_index"],
+                       "segscan_launches": seg_ops.launch_count - seg,
+                       **res.stats["timings"]})
+    launches = ops.launch_count
+    seg_launches = seg_ops.launch_count
+    check(fa_ops.launch_count == ssd_ops.launch_count == 0,
+          "the mapping path launched a model kernel")
+    check(served[-1]["segscan_launches"] == weighted["levels"] > 0
+          and seg_launches == served[-1]["segscan_launches"],
+          f"segscan launches {[r['segscan_launches'] for r in served]}, "
+          f"expected {weighted['levels']} for the weighted request only")
+
+    # every cold winner: the host-engine candidate the numpy evaluator
+    # picks on the same stack
+    for name, req, rec, ref, obj in zip(names, reqs + [wreq], served, refs,
+                                        objs):
+        t0 = time.perf_counter()
+        ev = evaluate_candidates_numpy(
+            req.alloc.machine, req.graph.edges, req.graph.weights,
+            ref["stack"], traffic="latency_max" in obj)
+        best = winner(ev, obj)
+        rec["numpy_score_s"] = time.perf_counter() - t0
+        rec["numpy_winner"] = best
+        rec["host_partition_s"] = ref["part_s"]
+        rec["host_side_s"] = {k: v[1] for k, v in ref["host"].items()}
+        # the service's content signature, recomputed (the request keeps
+        # its own): what a cold request spends hashing its arrays
+        t0 = time.perf_counter()
+        sig = mapping_signature(
+            req.graph, req.alloc, req.config,
+            None if req.task_weights is None else
+            {"task_weights": array_digest(req.task_weights)})
+        rec["signature_s"] = time.perf_counter() - t0
+        check(sig == req.signature(), f"{name}: signature recomputed differs")
+        got = svc.results.get(req.signature(), count=False)
+        want = ref["results"][best]
+        check(np.array_equal(got.task_to_proc, want.task_to_proc)
+              and got.rotation == want.rotation
+              and rec["winner_index"] == best,
+              f"{name}: served winner is not the host-engine candidate the "
+              f"numpy evaluator picks ({best})")
+        check(np.isclose(got.score, ev[obj[0]][best], rtol=RTOL),
+              f"{name}: score {got.score} vs numpy {ev[obj[0]][best]}")
+
+    for name, req, rec in zip(SCENARIOS, reqs, served):
+        resp = svc.map(req)
+        check(resp.status == "warm", f"{name}: repeat answer {resp.status}")
+        rec["warm_s"] = resp.latency_s
+    batch = svc.map_many([reqs[0], reqs[1], reqs[0]])
+    check([r.status for r in batch] == ["warm", "warm", "coalesced"],
+          f"batch statuses {[r.status for r in batch]}")
+    check(ops.launch_count == launches, "a warm answer launched the kernel")
+    stats = svc.stats()
+    check(stats["cold"] == len(names), f"service stats {stats}")
+
+    # the staged device path: partition, then score, same answers
+    for name, req, rec in zip(SCENARIOS, reqs, served):
+        staged = MappingRequest(req.graph, req.alloc,
+                                dataclasses.replace(req.config, fused="off"))
+        k1 = ops.launch_count
+        resp = svc.map(staged)
+        torch.cuda.synchronize()
+        res = resp.result
+        check(resp.status == "cold" and not res.stats.get("fused"),
+              f"{name}: fused='off' answer {resp.status}, {res.stats}")
+        check(ops.launch_count == k1 + 1, f"{name}: staged K1 launches")
+        fused = svc.results.get(req.signature(), count=False)
+        check(np.array_equal(res.task_to_proc, fused.task_to_proc)
+              and res.rotation == fused.rotation,
+              f"{name}: the staged answer differs from the fused one")
+        rec["staged"] = {"cold_s": resp.latency_s, **res.stats["timings"]}
+    return {"requests": served, "kernel_launches": launches,
+            "segscan_launches": seg_launches,
+            "service": {k: stats[k] for k in ("cold", "warm", "coalesced")}}
+
+
+def mapping_phases(scale, rotations, profile) -> dict:
+    """Phases ``kernels``, ``partition`` and ``serve``: the mapping paths
+    (K1, the device partitioner with segscan, the served requests)."""
+    from repro_torch.kernels.mapscore import kernel as ms_kernel
+    from repro_torch.kernels.mapscore import ops
+
+    # -- phase 2: kernel vs plain -----------------------------------------
+    small = [compare_case(*c) for c in small_cases()]
+    # hop-only stack with the core column left out (gemini, 1 core dim)
+    c = small_cases()[3]
+    small.append(compare_case("hop-only-no-core-cols", *c[1:],
+                              hop_only_cols=c[1].ndim - c[1].core_dims))
+    full = []
+    problems = {}
+    for name in dict.fromkeys(n.rsplit("-", 1)[0] for n in SCENARIOS):
+        # one stack per (workload, allocation); both objectives run on it
+        prob = full_size_problem(name + "-latency", scale, rotations)
+        problems[name] = prob
+        req, stack = prob["req"], prob["stack"]
+        rec = compare_case(f"{name}@{scale}", req.alloc.machine,
+                           req.graph.edges, req.graph.weights, stack,
+                           timed=True)
+        rec["partition_s"] = prob["part_s"]
+        _, _, per_cand = ms_kernel.workspace_layout(
+            req.alloc.machine.dims, req.alloc.machine.core_dims)
+        rec["workspace_bytes_per_candidate"] = per_cand * 8
+        rec["candidates_per_group"] = ops.candidate_chunk(
+            req.alloc.machine, True, nb=len(stack))
+        full.append(rec)
+    check(any(r["workspace_bytes_per_candidate"] > 232448 for r in full),
+          "no full-size machine exceeds one block's shared memory")
+    range_errors = range_error_cases()
+    emit("kernels", rtol=RTOL, atol=ATOL, small=small, full=full,
+         range_errors=range_errors, design=ms_kernel.DESIGN,
+         timing="median of 20 kernel / 5 plain launches, CUDA events; "
+                "kernel calls under set_sync_debug_mode('error')")
+
+    # -- phase 3: the device partitioner vs the host engine ---------------
+    weighted = full_size_problem(SCENARIOS[0], scale, rotations,
+                                 weights_seed=0)
+    part = partition_phase(problems, weighted, scale)
+    weighted["levels"] = next(r["levels"] for r in part["cases"]
+                              if r["case"].startswith("weighted@"))
+    emit("partition", scale=scale, rotations=rotations, **part,
+         timing="device_ms: median of 5 sweeps after the upload, CUDA "
+                "events; host_s: the numpy engine, host clock; every "
+                "sweep under set_sync_debug_mode('error')")
+
+    # -- phase 4: serve -----------------------------------------------------
+    serve = serve_phase(problems, weighted, scale, rotations)
+    emit("serve", scale=scale, rotations=rotations, **serve)
+    if profile:
+        profile_phase(problems[SCENARIOS[1].rsplit("-", 1)[0]], scale,
+                      rotations)
+    return {"small": small, "full": full, "partition": part,
+            "serve": serve}
 
 
 # ---------------------------------------------------------------------------
@@ -1090,22 +1523,18 @@ def main(argv=None) -> int:
         print("chip_smoke: torch finds no CUDA device; this script only "
               "runs on a GPU", file=sys.stderr)
         return 1
-    import numpy as np
-    from repro_torch.core.metrics import evaluate_candidates_numpy
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import kernel as ms_kernel
-    from repro_torch.kernels.mapscore import ops
+    from repro_torch.kernels.segscan import kernel as seg_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.serve import MappingService, get_scenario
 
     # -- phase 1: device + build ------------------------------------------
     smi = nvidia_smi_line()
     ms_kernel._launch_fn()          # builds and loads, or raises
     fa_kernel._launch_fn()
     ssd_kernel._launch_fn()
+    seg_kernel._launch_fn()
     info = _build.build_info()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -1113,109 +1542,8 @@ def main(argv=None) -> int:
          build_seconds=info["seconds"], built=info["built"],
          library=os.path.relpath(info["path"]), sources=info["sources"])
 
-    # -- phase 2: kernel vs plain -----------------------------------------
-    small = [compare_case(*c) for c in small_cases()]
-    # hop-only stack with the core column left out (gemini, 1 core dim)
-    c = small_cases()[3]
-    small.append(compare_case("hop-only-no-core-cols", *c[1:],
-                              hop_only_cols=c[1].ndim - c[1].core_dims))
-    full = []
-    problems = {}
-    for name in dict.fromkeys(n.rsplit("-", 1)[0] for n in SCENARIOS):
-        # one stack per (workload, allocation); both objectives run on it
-        prob = full_size_problem(name + "-latency", args.scale,
-                                 args.rotations)
-        problems[name] = prob
-        req, _, _, stack, part_s = prob
-        rec = compare_case(f"{name}@{args.scale}", req.alloc.machine,
-                           req.graph.edges, req.graph.weights, stack,
-                           timed=True)
-        rec["partition_s"] = part_s
-        _, _, per_cand = ms_kernel.workspace_layout(
-            req.alloc.machine.dims, req.alloc.machine.core_dims)
-        rec["workspace_bytes_per_candidate"] = per_cand * 8
-        rec["candidates_per_group"] = ops.candidate_chunk(
-            req.alloc.machine, True, nb=len(stack))
-        full.append(rec)
-    check(any(r["workspace_bytes_per_candidate"] > 232448 for r in full),
-          "no full-size machine exceeds one block's shared memory")
-    range_errors = range_error_cases()
-    emit("kernels", rtol=RTOL, atol=ATOL, small=small, full=full,
-         range_errors=range_errors, design=ms_kernel.DESIGN,
-         timing="median of 20 kernel / 5 plain launches, CUDA events; "
-                "kernel calls under set_sync_debug_mode('error')")
-
-    # -- phase 3: serve -----------------------------------------------------
-    svc = MappingService()
-    reqs = [get_scenario(n, scale=args.scale,
-                         rotations=args.rotations).request()
-            for n in SCENARIOS]
-    # the main path's only
-    ops.launch_count = fa_ops.launch_count = ssd_ops.launch_count = 0
-    served = []
-    expected_launches = 0
-    for name, req in zip(SCENARIOS, reqs):
-        resp = svc.map(req)
-        torch.cuda.synchronize()
-        check(resp.status == "cold", f"{name}: first answer {resp.status}")
-        res = resp.result
-        check("degraded" not in res.stats, f"{name}: degraded answer")
-        t2p = np.asarray(res.task_to_proc)
-        check(t2p.shape == (req.graph.n,), f"{name}: shape {t2p.shape}")
-        check(t2p.min() >= 0 and t2p.max() < req.alloc.n,
-              f"{name}: assignment leaves the allocation")
-        if req.graph.n == req.alloc.n:
-            check(np.bincount(t2p, minlength=req.alloc.n).max() == 1,
-                  f"{name}: a processor holds two tasks")
-        check(np.isfinite(res.score), f"{name}: score {res.score}")
-        expected_launches += 1  # the whole candidate stack, one launch
-        served.append({"scenario": name, "tasks": int(req.graph.n),
-                       "edges": int(len(req.graph.edges)),
-                       "machine_dims": list(req.alloc.machine.dims),
-                       "cold_s": resp.latency_s, "score": res.score,
-                       "rotation": res.rotation,
-                       **{k: v for k, v in res.stats["timings"].items()}})
-    launches = ops.launch_count
-    check(fa_ops.launch_count == ssd_ops.launch_count == 0,
-          "the mapping path launched a model kernel")
-    check(launches == expected_launches and launches > 0,
-          f"launch count {launches}, expected {expected_launches}")
-
-    # every cold winner against the numpy evaluator on the same stack
-    for name, req, rec in zip(SCENARIOS, reqs, served):
-        _, pipe, results, stack, _ = problems[name.rsplit("-", 1)[0]]
-        obj = OBJECTIVES[name.rsplit("-", 1)[1]]
-        t0 = time.perf_counter()
-        ev = evaluate_candidates_numpy(
-            req.alloc.machine, req.graph.edges, req.graph.weights, stack,
-            traffic="latency_max" in obj)
-        best = winner(ev, obj)
-        rec["numpy_score_s"] = time.perf_counter() - t0
-        rec["numpy_winner"] = best
-        got = svc.results.get(req.signature(), count=False)
-        check(np.array_equal(got.task_to_proc, results[best].task_to_proc)
-              and got.rotation == results[best].rotation,
-              f"{name}: served winner is not the numpy evaluator's "
-              f"(numpy picks candidate {best})")
-        check(np.isclose(got.score, ev[obj[0]][best], rtol=RTOL),
-              f"{name}: score {got.score} vs numpy {ev[obj[0]][best]}")
-
-    for name, req, rec in zip(SCENARIOS, reqs, served):
-        resp = svc.map(req)
-        check(resp.status == "warm", f"{name}: repeat answer {resp.status}")
-        rec["warm_s"] = resp.latency_s
-    batch = svc.map_many([reqs[0], reqs[1], reqs[0]])
-    check([r.status for r in batch] == ["warm", "warm", "coalesced"],
-          f"batch statuses {[r.status for r in batch]}")
-    check(ops.launch_count == launches, "a warm answer launched the kernel")
-    stats = svc.stats()
-    check(stats["cold"] == len(SCENARIOS), f"service stats {stats}")
-    emit("serve", scale=args.scale, rotations=args.rotations,
-         requests=served, kernel_launches=launches,
-         service={k: stats[k] for k in ("cold", "warm", "coalesced")})
-    if args.profile:
-        profile_phase(problems[SCENARIOS[1].rsplit("-", 1)[0]], args.scale,
-                      args.rotations)
+    # -- phases 2 and 3, serve: the mapping paths ------------------------
+    mapping = mapping_phases(args.scale, args.rotations, args.profile)
 
     # -- phase 4: flash attention vs plain ----------------------------------
     attn = [attention_case(*c, seed=i) for i, c in enumerate(ATTN_CASES)]
@@ -1241,12 +1569,15 @@ def main(argv=None) -> int:
     # -- the kernels line ---------------------------------------------------
     fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
     sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED[0])
+    full, small = mapping["full"], mapping["small"]
     lead = full[0]  # minighost on xk7_sparse: the largest accumulators
+    seg = mapping["partition"]["segscan"]
+    seg_lead = seg[0]  # the first level's layout: the longest walks
     kernels = [{
         "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
         "replaces": "src/repro/kernels/mapscore/kernel.py:204",
-        "launches": launches,
+        "launches": mapping["serve"]["kernel_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in small + full),
         "ms": lead["ms_traffic"], "plain_ms": lead["plain_ms_traffic"],
         "bound_ms": lead["bound_ms_traffic"],
@@ -1284,6 +1615,22 @@ def main(argv=None) -> int:
                   "dtype": sd["dtype"]},
         "tolerance": {k: {"atol": f"{a:g} * max|y|", "rtol": r}
                       for k, (a, r) in SSD_TOL.items()},
+    }, {
+        "name": "segscan", "route": "cuda", "design": seg_kernel.DESIGN,
+        "source": "src/repro_torch/kernels/segscan/csrc/segscan.cu",
+        "replaces": "src/repro/core/partition_jax.py:212",
+        "note": "no Pallas counterpart: the sequential lax.scan of the "
+                "reference's device partitioner, kept sequential for "
+                "bit-identity",
+        "launches": mapping["serve"]["segscan_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in seg),
+        "ms": seg_lead["ms"], "plain_ms": seg_lead["plain_ms"],
+        "bound_ms": seg_lead["bound_ms"], "bound_by": seg_lead["bound_by"],
+        "library_ms": seg_lead["library_ms"],
+        "chain_adds": seg_lead["chain_adds"],
+        "shape": {"case": seg_lead["case"], "n": seg_lead["n"],
+                  "segments": seg_lead["segments"]},
+        "tolerance": "exact",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

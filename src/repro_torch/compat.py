@@ -9,9 +9,8 @@ attribute names converts (duck typing).  Tests build every problem once
 through the reference's constructors, convert, and run both.
 
 Backend names translate (``"pallas"`` -> ``"hopper"``, ``"jax"`` ->
-``"torch"``); ``partition_backend="jax"`` is refused until the device
-partitioner is part of this package; ``device`` has no counterpart in
-the reference and is supplied by the caller.  A model's weights come
+``"torch"``, for the score and the partition backend alike); ``device``
+has no counterpart in the reference and is supplied by the caller.  A model's weights come
 across with :func:`repro_torch.models.params_from_numpy`.
 """
 
@@ -29,6 +28,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import MappingRequest
 
 SCORE_BACKEND_NAMES = {"numpy": "numpy", "jax": "torch", "pallas": "hopper"}
+PARTITION_BACKEND_NAMES = {"numpy": "numpy", "jax": "torch"}
 
 
 def machine(ref) -> Machine:
@@ -68,11 +68,9 @@ def pipeline_config(ref, *, device: str = "cuda") -> PipelineConfig:
     """Field for field; backend names translated, ``device`` added."""
     if ref.score_backend not in SCORE_BACKEND_NAMES:
         raise ValueError(f"unknown score backend {ref.score_backend!r}")
-    if ref.partition_backend != "numpy":
+    if ref.partition_backend not in PARTITION_BACKEND_NAMES:
         raise ValueError(
-            f"partition_backend={ref.partition_backend!r} has no "
-            "counterpart yet: the device partitioner belongs to a later "
-            "slice of the PyTorch port")
+            f"unknown partition backend {ref.partition_backend!r}")
     objective = ref.objective if isinstance(ref.objective, str) \
         else tuple(ref.objective)
     return PipelineConfig(
@@ -83,7 +81,8 @@ def pipeline_config(ref, *, device: str = "cuda") -> PipelineConfig:
         drop=tuple(ref.drop), rotations=int(ref.rotations),
         uneven_prime=bool(ref.uneven_prime),
         longest_dim=bool(ref.longest_dim), backend=ref.backend,
-        partition_backend="numpy", fused=ref.fused, objective=objective,
+        partition_backend=PARTITION_BACKEND_NAMES[ref.partition_backend],
+        fused=ref.fused, objective=objective,
         sweep=ref.sweep,
         score_backend=SCORE_BACKEND_NAMES[ref.score_backend],
         hierarchy=hierarchy(ref.hierarchy),

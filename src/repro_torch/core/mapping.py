@@ -84,13 +84,15 @@ def geometric_map(
     """Paper Algorithm 1 for one (task_perm, proc_perm) rotation.
 
     Partition and match only: nothing is scored, so the pipeline behind
-    it is built with the host scorer and touches no device.
+    it is built with the host partitioner and the host scorer and
+    touches no device (``backend`` picks the host engine, as in the
+    reference).
     """
     from repro_torch.mapping.pipeline import MappingPipeline, PipelineConfig
     pipe = MappingPipeline(PipelineConfig(
         sfc=sfc, mfz=mfz, longest_dim=longest_dim,
         uneven_prime=uneven_prime, backend=backend,
-        score_backend="numpy", device="cpu"))
+        partition_backend="numpy", score_backend="numpy", device="cpu"))
     return pipe.map_candidate(task_coords, proc_coords,
                               task_weights=task_weights,
                               task_perm=task_perm, proc_perm=proc_perm)
@@ -117,14 +119,16 @@ class MapperConfig:
     uneven_prime   : Z2_2 — largest-prime-divisor uneven bisection.
     longest_dim    : cut the longest dimension (False = strict alternation).
     backend        : partitioner engine ("vectorized" or "recursive").
-    partition_backend : partition engine (only "numpy" so far).
-    fused          : "auto" or "off" (no fused program yet: both run
-                     the staged path).
+    partition_backend : partition engine ("torch", the device sweep, by
+                     default; "numpy" the host engine).
+    fused          : "auto" (the one-pass device sweep where the
+                     backends allow it) or "off" (the staged path).
     sweep          : rotation-sweep mode ("batched" = ~2 engine passes
                      for the whole sweep; "loop" = per-candidate oracle).
     score_backend  : candidate scoring engine ("hopper", "torch" or
                      "numpy"; the name given runs or the mapper raises).
-    device         : where scoring runs ("cuda" by default, or "cpu").
+    device         : where the device partitioner and the scoring run
+                     ("cuda" by default, or "cpu").
     hierarchy      : a :class:`repro_torch.hier.HierarchySpec` (ordered
                      coarsening levels with per-level refine budgets;
                      ``HierarchySpec.flat()`` / ``.node()`` /
@@ -146,7 +150,7 @@ class MapperConfig:
     uneven_prime: bool = False
     longest_dim: bool = True
     backend: str = "vectorized"
-    partition_backend: str = "numpy"
+    partition_backend: str = "torch"
     fused: str = "auto"
     sweep: str = "batched"
     score_backend: str = "hopper"

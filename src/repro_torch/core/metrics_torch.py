@@ -186,6 +186,24 @@ def inverse_bandwidths(machine: Machine) -> np.ndarray:
         for k in range(nd)]).astype(np.float32)
 
 
+def message_inputs(machine: Machine, task_edges, edge_weights,
+                   traffic: bool, device):
+    """The messages' side of the scorer's inputs as tensors on
+    ``device``: ``(edges int64, w float32, inv_bw float32|None)``."""
+    dev = torch.device(device)
+    edges = torch.as_tensor(np.ascontiguousarray(task_edges)).to(
+        device=dev, dtype=torch.int64)
+    if edge_weights is None:
+        w = torch.ones(len(task_edges), dtype=torch.float32, device=dev)
+    else:
+        w = torch.as_tensor(np.asarray(edge_weights)).to(
+            device=dev, dtype=torch.float32)
+    inv_bw = None
+    if traffic:
+        inv_bw = torch.from_numpy(inverse_bandwidths(machine)).to(dev)
+    return edges.contiguous(), w.contiguous(), inv_bw
+
+
 def scoring_inputs(machine: Machine, task_edges, edge_weights, coord_stack,
                    traffic: bool, device):
     """The scorer's inputs as tensors on ``device``:
@@ -193,23 +211,13 @@ def scoring_inputs(machine: Machine, task_edges, edge_weights, coord_stack,
     Shared by the torch scorer and the kernel wrapper so both see the
     same values."""
     dev = torch.device(device)
-    ne = len(task_edges)
     cs = torch.as_tensor(coord_stack).to(device=dev, dtype=torch.int32)
     if traffic and cs.shape[-1] < machine.ndim:
         # routing keys its rows on every machine dim; a stack that left
         # the core columns out gets them back as zeros (they are free)
         cs = torch.nn.functional.pad(cs, (0, machine.ndim - cs.shape[-1]))
-    edges = torch.as_tensor(np.ascontiguousarray(task_edges)).to(
-        device=dev, dtype=torch.int64)
-    if edge_weights is None:
-        w = torch.ones(ne, dtype=torch.float32, device=dev)
-    else:
-        w = torch.as_tensor(np.asarray(edge_weights)).to(
-            device=dev, dtype=torch.float32)
-    inv_bw = None
-    if traffic:
-        inv_bw = torch.from_numpy(inverse_bandwidths(machine)).to(dev)
-    return cs.contiguous(), edges.contiguous(), w.contiguous(), inv_bw
+    return (cs.contiguous(),
+            *message_inputs(machine, task_edges, edge_weights, traffic, dev))
 
 
 def empty_scores(nb: int, traffic: bool) -> dict:
@@ -241,23 +249,33 @@ def evaluate_candidates_torch(machine: Machine, task_edges: np.ndarray,
     out = empty_scores(nb, traffic)
     if ne == 0 or nb == 0:
         return out
-    nd = machine.ndim - machine.core_dims
-    dims = tuple(int(x) for x in machine.dims)
-    wrap = tuple(bool(x) for x in machine.wrap)
     cs, edges, w, inv_bw = scoring_inputs(
         machine, task_edges, edge_weights, coord_stack, traffic, device)
-
-    per_cand = max(ne * machine.ndim, 1)
-    if traffic:
-        per_cand += 2 * nd * machine.nnodes
-    chunk = int(max(1, chunk_elems // per_cand))
-    for c0 in range(0, nb, chunk):
-        ev = _score_chunk(cs[c0:c0 + chunk], edges, w, inv_bw, dims=dims,
-                          wrap=wrap, core_dims=machine.core_dims,
-                          traffic=traffic)
-        sl = slice(c0, c0 + chunk)
-        for key, val in ev.items():
-            out[key][sl] = val.cpu().numpy().astype(out[key].dtype)
+    ev = score_stack(machine, cs, edges, w, inv_bw, traffic=traffic,
+                     chunk_elems=chunk_elems)
+    for key, val in ev.items():
+        out[key] = val.cpu().numpy().astype(out[key].dtype)
     # averages from the integer sums (bit-identical to numpy's h.mean)
     out["average_hops"] = out["total_hops"] / ne
     return out
+
+
+def score_stack(machine: Machine, cs: torch.Tensor, edges: torch.Tensor,
+                w: torch.Tensor, inv_bw: torch.Tensor | None, *,
+                traffic: bool, chunk_elems: int = 1 << 24) -> dict:
+    """The plain scorer over a whole stack on its device, the candidate
+    axis chunked by ``chunk_elems`` message-coordinates and link entries:
+    :func:`_score_chunk`'s dict with each value concatenated over the
+    chunks (device tensors; nothing is copied to the host)."""
+    nd = machine.ndim - machine.core_dims
+    per_cand = max(edges.shape[0] * machine.ndim, 1)
+    if traffic:
+        per_cand += 2 * nd * machine.nnodes
+    chunk = int(max(1, chunk_elems // per_cand))
+    dims = tuple(int(x) for x in machine.dims)
+    wrap = tuple(bool(x) for x in machine.wrap)
+    parts = [_score_chunk(cs[c0:c0 + chunk], edges, w, inv_bw, dims=dims,
+                          wrap=wrap, core_dims=machine.core_dims,
+                          traffic=traffic)
+             for c0 in range(0, len(cs), chunk)]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}

@@ -21,17 +21,20 @@ Three implementations are provided:
                               (:mod:`repro_torch.core.partition`)
                               by default; ``backend="recursive"`` selects
                               the original per-part Python recursion, kept
-                              as the cross-check oracle.
+                              as the cross-check oracle, and
+                              ``backend="torch"`` the device engine
+                              (:mod:`repro_torch.core.partition_torch`).
 ``grid_order`` / fast paths — closed-form bit-twiddling for structured
                               2^k-per-side grids (used by the Table-1
                               benchmark at up to 2^20 points).  The generic
                               and closed-form paths are cross-checked in
                               tests/test_orderings.py.
 
-The two generic backends return bit-identical part numbers (the
-equivalence suite in tests/test_partition.py asserts this across random
-point sets, weights, ``uneven_prime`` and every SFC kind); the vectorised
-engine is the default because it removes the Python-per-part overhead.
+The generic backends return bit-identical part numbers (the
+equivalence suites in tests/test_torch_partition.py and
+tests/test_torch_partition_device.py assert this across random point
+sets, weights, ``uneven_prime`` and every SFC kind); the vectorised
+engine is this function's default, the pipeline's is the device engine.
 """
 
 from __future__ import annotations
@@ -39,27 +42,34 @@ from __future__ import annotations
 import numpy as np
 
 SFC_KINDS = ("Z", "Gray", "FZ", "FZlow", "H")
-BACKENDS = ("vectorized", "recursive")
+BACKENDS = ("vectorized", "recursive", "torch")
 
-# Partition engines (the pipeline-level knob).  Only the host engine is
-# part of this package so far; the device partitioner arrives with a
-# later slice of the port, and asking for it raises rather than running
-# the host engine under its name.
-PARTITION_BACKENDS = ("numpy",)
+# Partition engines (the pipeline-level knob): "numpy" is the vectorized
+# host engine, "torch" the device sweep of
+# :mod:`repro_torch.core.partition_torch` on the pipeline's device.
+PARTITION_BACKENDS = ("numpy", "torch")
 
 
-def resolve_partition_backend(backend: str) -> str:
+def resolve_partition_backend(backend: str, device="cuda") -> str:
     """Check a partition-backend request; returns the name that runs.
 
-    There is no fallback chain: ``"numpy"`` (the vectorized host engine)
-    is the only engine this package has, and any other name raises.
+    There is no fallback chain: an unknown name raises, and ``"torch"``
+    on a CUDA device the process cannot reach raises
+    (:func:`repro_torch.device.resolve_device`).
     """
     if backend not in PARTITION_BACKENDS:
-        raise ValueError(
-            f"unknown partition backend {backend!r}; options: "
-            f"{PARTITION_BACKENDS} (the device partitioner belongs to a "
-            "later slice of the PyTorch port)")
+        raise ValueError(f"unknown partition backend {backend!r}; "
+                         f"options: {PARTITION_BACKENDS}")
+    if backend == "torch":
+        from repro_torch.device import resolve_device
+        resolve_device(device)
     return backend
+
+
+def _torch_batched(coords, nparts, sfc, **kw):
+    """The device engine (imported on first use)."""
+    from .partition_torch import order_points_batched_torch
+    return order_points_batched_torch(coords, nparts, sfc, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +103,7 @@ def order_points(
     longest_dim: bool = True,
     uneven_prime: bool = False,
     backend: str = "vectorized",
+    device="cuda",
 ) -> np.ndarray:
     """Paper Algorithm 2: assign part numbers ``mu`` to ``coords``.
 
@@ -109,15 +120,27 @@ def order_points(
         level (the paper's earlier [21] behaviour).
     uneven_prime : Z2_2 — split ``nparts`` by its largest prime divisor
         (3/5 vs 2/5 for p=5) instead of requiring powers of two.
-    backend : ``"vectorized"`` (level-synchronous engine, default) or
-        ``"recursive"`` (the original reference recursion).  Both
-        return bit-identical part numbers.
+    backend : ``"vectorized"`` (level-synchronous engine, default),
+        ``"recursive"`` (the original reference recursion) or
+        ``"torch"`` (the device engine of
+        :mod:`repro_torch.core.partition_torch`).  All return
+        bit-identical part numbers.
+    device : where the ``"torch"`` engine runs (``"cuda"`` by default;
+        unreachable raises); the host engines ignore it.
 
     Returns
     -------
     mu : (n,) int64 part numbers in ``[0, nparts)``.
     """
     coords = np.asarray(coords, dtype=np.float64)
+    if backend == "torch":
+        d = coords.shape[1] if coords.ndim == 2 else 1
+        dimo = (np.arange(d, dtype=np.int64) if dim_order is None
+                else np.asarray(dim_order, dtype=np.int64))
+        return _torch_batched(
+            coords, nparts, sfc, dim_orders=dimo[None], weights=weights,
+            longest_dim=longest_dim, uneven_prime=uneven_prime,
+            device=device)[0]
     if sfc == "H":
         return _hilbert_order_points(coords.copy(), nparts, weights=weights)
     if sfc not in SFC_KINDS:
@@ -144,6 +167,7 @@ def order_points_batched(
     longest_dim: bool = True,
     uneven_prime: bool = False,
     backend: str = "vectorized",
+    device="cuda",
 ) -> np.ndarray:
     """Paper Algorithm 2 for a whole stack of dimension rotations at once.
 
@@ -172,8 +196,10 @@ def order_points_batched(
     weights, longest_dim, uneven_prime : as in ``order_points``.
     backend : ``"vectorized"`` runs the single batched engine pass (for
         ``"H"`` a per-candidate Hilbert-index loop over ONE memoised
-        quantisation); ``"recursive"`` loops the reference
-        per-candidate oracle (slow, kept for equivalence tests).
+        quantisation); ``"torch"`` the batched device sweep on
+        ``device``; ``"recursive"`` loops the reference per-candidate
+        oracle (slow, kept for equivalence tests).
+    device : where the ``"torch"`` engine runs (as in ``order_points``).
 
     Returns
     -------
@@ -185,6 +211,11 @@ def order_points_batched(
     """
     coords = np.asarray(coords, dtype=np.float64)
     dim_orders = np.atleast_2d(np.asarray(dim_orders, dtype=np.int64))
+    if backend == "torch":
+        return _torch_batched(
+            coords, nparts, sfc, dim_orders=dim_orders, weights=weights,
+            longest_dim=longest_dim, uneven_prime=uneven_prime,
+            device=device)
     if sfc == "H":
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")

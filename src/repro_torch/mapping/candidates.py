@@ -111,37 +111,54 @@ class CandidateSearch:
         return any(k in ("latency_max", "data_max") for k in self.objective)
 
     def score(self, graph, alloc, results) -> np.ndarray:
-        """(len(results), len(objective)) score matrix, lower is better.
+        """(len(results), len(objective)) score matrix, lower is better."""
+        return self.score_assignments(
+            graph, alloc, np.stack([r.task_to_proc for r in results]))
+
+    def score_assignments(self, graph, alloc, t2p) -> np.ndarray:
+        """The score matrix of the (ncand, tnum) assignments ``t2p``: a
+        numpy array, or a tensor (gathered on the scorer's device, so a
+        stack already there is not uploaded again).
 
         Scoring uses the allocation's RAW coordinates (transforms only
         steer the partitioner; the metrics model the physical network).
         """
         if self.backend == "numpy":
-            coord_stack = np.stack(
-                [alloc.coords[r.task_to_proc] for r in results])
+            if isinstance(t2p, torch.Tensor):
+                t2p = t2p.cpu().numpy()
+            coord_stack = alloc.coords[t2p]
         else:
             # gather on the device: ship the allocation's coordinate
             # table and the assignments, not the gathered stack
             coords = torch.as_tensor(np.ascontiguousarray(alloc.coords)).to(
                 device=self.device, dtype=torch.int32)
-            t2p = torch.as_tensor(np.stack(
-                [r.task_to_proc for r in results])).to(
-                device=self.device, dtype=torch.int64)
-            coord_stack = coords[t2p]
+            coord_stack = coords[torch.as_tensor(t2p).to(
+                device=self.device, dtype=torch.int64)]
         ev = self._evaluate(
             alloc.machine, graph.edges, graph.weights, coord_stack,
             traffic=self.needs_traffic)
         return np.stack([ev[k] for k in self.objective], axis=1)
 
-    def best(self, graph, alloc, results):
-        """(winner, winner_index, scores); first-of-ties wins.
+    def best_of(self, graph, alloc, t2p):
+        """(winner_index, scores) of the assignments ``t2p``."""
+        scores = self.score_assignments(graph, alloc, t2p)
+        return first_best(scores), scores
 
-        One stable ``np.lexsort`` over the objective columns (last key
-        is most significant, so the columns go in reversed) — stability
-        keeps the FIRST index among equal scores, preserving the
-        never-worse-than-default guarantee.
-        """
-        scores = self.score(graph, alloc, results)
-        keys = tuple(scores[:, j] for j in reversed(range(scores.shape[1])))
-        best_i = int(np.lexsort(keys)[0])
+    def best(self, graph, alloc, results):
+        """(winner, winner_index, scores); first-of-ties wins."""
+        best_i, scores = self.best_of(
+            graph, alloc, np.stack([r.task_to_proc for r in results]))
         return results[best_i], best_i, scores
+
+
+def first_best(scores: np.ndarray) -> int:
+    """The row of the lexicographically least score (column 0 most
+    significant); ties keep the FIRST row.
+
+    One stable ``np.lexsort`` over the objective columns (last key is
+    most significant, so the columns go in reversed) — stability keeps
+    the FIRST index among equal scores, preserving the
+    never-worse-than-default guarantee.
+    """
+    keys = tuple(scores[:, j] for j in reversed(range(scores.shape[1])))
+    return int(np.lexsort(keys)[0])

@@ -18,11 +18,12 @@
 - :meth:`map` enumerates the rotation candidates and scores them with
   the batched :class:`repro_torch.mapping.candidates.CandidateSearch`
   (``score_backend`` selects the CUDA kernel, the plain torch scorer or
-  the numpy reference; ``device`` says where the scoring runs).
+  the numpy reference; ``device`` says where the partitioner and the
+  scoring run), or runs the whole sweep on the device in one pass
+  (:mod:`repro_torch.mapping.fused`).
 
-``core.mapping.Mapper`` is a thin adapter over this class.  In this
-package the partitioner still runs on the host; a non-flat hierarchy
-and the fused whole-pipeline program are not part of it yet.
+``core.mapping.Mapper`` is a thin adapter over this class.  A non-flat
+hierarchy is not part of this package yet.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import dataclasses
 import threading
 
 import numpy as np
+import torch
 
 from repro_torch import obs
 from repro_torch.core.kmeans import closest_subset
@@ -38,6 +40,7 @@ from repro_torch.core.machine import Allocation
 from repro_torch.core.mapping import MappingResult, match_parts
 from repro_torch.core.orderings import (order_points, order_points_batched,
                                         resolve_partition_backend)
+from repro_torch.core.partition_torch import partition
 from repro_torch.core.transforms import (apply_permutation, box_lift,
                                          drop_dims, scale_by_bandwidth,
                                          shift_torus)
@@ -57,12 +60,19 @@ class PipelineConfig:
                      alternation).
       uneven_prime : Z2_2 — largest-prime-divisor uneven bisection.
       backend      : ``order_points`` backend ("vectorized"/"recursive").
-      partition_backend : partition engine — only "numpy" (the host
-                     engine) so far; any other name raises (the device
-                     partitioner is a later slice of the port).
-      fused        : "auto" (default) or "off".  There is no fused
-                     whole-pipeline program in this package yet, so
-                     both run the staged path; other values raise.
+      partition_backend : partition engine — "torch" (default: the
+                     device sweep of
+                     :mod:`repro_torch.core.partition_torch` on
+                     ``device``) or "numpy" (the host engine, the
+                     oracle).  Both return bit-identical permutations;
+                     any other name raises, and so does "torch" on an
+                     unreachable device.  With a "torch"/"hopper" score
+                     backend and the batched vectorized sweep, the whole
+                     partition -> match -> score -> select chain runs on
+                     the device in one pass (:mod:`repro_torch.mapping.fused`).
+      fused        : "auto" (default) takes that one-pass sweep whenever
+                     the backends allow it; "off" forces the staged path;
+                     other values raise.
 
     Machine-transform stage:
       shift           : torus wrap-around shifting of machine coords.
@@ -87,10 +97,11 @@ class PipelineConfig:
                   "torch" (plain tensor operations on ``device``) or
                   "numpy" (host reference).  The name given is the one
                   that runs, or the pipeline raises: nothing falls back.
-      device    : where scoring runs — "cuda" (default) or "cpu".
-                  "cuda" with no CUDA device raises, and so does
-                  "hopper" on a CPU device.  The device is not part of
-                  a request's content signature: the same problem is
+      device    : where the "torch" partitioner and the scoring run —
+                  "cuda" (default) or "cpu".  "cuda" with no CUDA
+                  device raises, and so does "hopper" on a CPU device.
+                  The device is not part of a request's content
+                  signature: the same problem is
                   the same problem wherever it is scored.
 
     Hierarchy stage (:mod:`repro_torch.hier`):
@@ -125,7 +136,7 @@ class PipelineConfig:
     uneven_prime: bool = False
     longest_dim: bool = True
     backend: str = "vectorized"
-    partition_backend: str = "numpy"
+    partition_backend: str = "torch"
     fused: str = "auto"
     objective: str | tuple = "weighted_hops"
     sweep: str = "batched"
@@ -139,6 +150,56 @@ class PipelineConfig:
 
     def __post_init__(self):
         normalize_config_hierarchy(self)
+
+
+@dataclasses.dataclass
+class SweepPlan:
+    """The two partitioner calls of one batched rotation sweep.
+
+    ``task`` / ``proc`` are each side's keyword arguments of
+    ``order_points_batched`` (and of the device engine's ``upload``),
+    with one ``dim_orders`` row per UNIQUE rotation of that side;
+    ``t_sel`` / ``p_sel`` ((ncand,) int64) give each candidate's row.
+    """
+
+    task: dict
+    proc: dict
+    t_sel: np.ndarray
+    p_sel: np.ndarray
+
+
+def _unique_perms(perms, d: int) -> tuple[np.ndarray, np.ndarray]:
+    """(sorted unique permutations, each entry's row among them); None
+    is the identity."""
+    rows = [tuple(p) if p is not None else tuple(range(d)) for p in perms]
+    uniq = sorted(set(rows))
+    of = {p: i for i, p in enumerate(uniq)}
+    return (np.array(uniq, dtype=np.int64),
+            np.array([of[p] for p in rows], dtype=np.int64))
+
+
+def rotation_of(c) -> tuple:
+    """A candidate's ``MappingResult.rotation``."""
+    return (tuple(c.task_perm or ()), tuple(c.proc_perm or ()))
+
+
+def assign_parts(mu_t, mu_p, t_sel, p_sel):
+    """GETMAPPINGARRAYS for a whole sweep, in tensor operations on the
+    part numbers' device: the part -> processor table of every proc
+    rotation (pnum == nparts, so each part holds one processor), then
+    each candidate's (ncand, tnum) int64 task -> processor through it.
+    Returns ``(t2p, ptp)``; ``ptp < 0`` marks a part with no processor.
+    Nothing is read back."""
+    ptp = torch.full_like(mu_p, -1)
+    ptp.scatter_(1, mu_p, torch.arange(mu_p.shape[1], dtype=mu_p.dtype,
+                                       device=mu_p.device).expand_as(mu_p))
+    return ptp[p_sel].gather(1, mu_t[t_sel]), ptp
+
+
+def missing_parts(ptp) -> ValueError:
+    """The error for a part table with parts no processor holds."""
+    missing = torch.nonzero((ptp < 0).any(dim=0)).flatten().cpu().numpy()
+    return ValueError(f"parts with no processor: {missing[:5]}")
 
 
 # Process-wide pipeline registry: one MappingPipeline per distinct
@@ -183,11 +244,22 @@ class MappingPipeline:
                                       backend=cfg.score_backend,
                                       device=cfg.device)
         self.partition_backend = resolve_partition_backend(
-            cfg.partition_backend)
-        self.order_backend = cfg.backend
+            cfg.partition_backend, cfg.device)
+        self.order_backend = ("torch" if (self.partition_backend == "torch"
+                                          and cfg.backend == "vectorized")
+                              else cfg.backend)
         if cfg.fused not in ("auto", "off"):
             raise ValueError(f"unknown fused mode {cfg.fused!r}; "
                              "options: 'auto', 'off'")
+        # the one-pass device sweep: partition + match + score + select
+        # on the device, when both stages run there and the sweep is the
+        # batched vectorized one (the fused gathers mirror it exactly)
+        self._fused = None
+        if (cfg.fused != "off" and self.order_backend == "torch"
+                and cfg.sweep == "batched"
+                and self.search.backend in ("torch", "hopper")):
+            from repro_torch.mapping.fused import FusedSweep
+            self._fused = FusedSweep(self, self.search.backend)
 
     # -- stage 1: machine transforms ------------------------------------
 
@@ -262,11 +334,11 @@ class MappingPipeline:
         mu_t = order_points(tc, np_parts, task_sfc, weights=task_weights,
                             longest_dim=cfg.longest_dim,
                             uneven_prime=cfg.uneven_prime,
-                            backend=self.order_backend)
+                            backend=self.order_backend, device=cfg.device)
         mu_p = order_points(pc, np_parts, proc_sfc,
                             longest_dim=cfg.longest_dim,
                             uneven_prime=cfg.uneven_prime,
-                            backend=self.order_backend)
+                            backend=self.order_backend, device=cfg.device)
         t2p = match_parts(mu_t, mu_p)
         if subset is not None:
             t2p = subset[t2p]
@@ -303,60 +375,66 @@ class MappingPipeline:
         cloud (quantisation commutes with it), bit-identical to the
         per-candidate loop.
         """
-        cfg = self.config
         tc = np.asarray(task_coords, dtype=np.float64)
         pc = np.asarray(proc_coords, dtype=np.float64)
-        (tnum, td), (pnum, pd) = tc.shape, pc.shape
-        if cfg.sweep == "loop" or len(cands) == 1 or tnum < pnum:
+        if self._per_candidate(tc, pc, cands):
             return [
                 self.map_candidate(tc, pc, task_weights=task_weights,
                                    task_perm=c.task_perm,
                                    proc_perm=c.proc_perm)
                 for c in cands
             ]
+        t2p = self._sweep_t2p(self.sweep_plan(tc, pc, cands, task_weights))
+        return [MappingResult(row, rotation=rotation_of(c))
+                for row, c in zip(t2p.to(torch.int32).cpu().numpy(), cands)]
+
+    def _per_candidate(self, tc, pc, cands) -> bool:
+        """Whether a sweep loops ``map_candidate`` (the oracle, one
+        candidate, or the tnum < pnum closest-subset case, whose
+        centroid iteration sums coordinates in column order)."""
+        cfg = self.config
+        if cfg.sweep == "loop" or len(cands) == 1 or len(tc) < len(pc):
+            return True
         if cfg.sweep != "batched":
             raise ValueError(f"unknown sweep mode {cfg.sweep!r}")
+        return False
 
-        np_parts = min(tnum, pnum)
+    def sweep_plan(self, tc, pc, cands, task_weights=None) -> SweepPlan:
+        """Both partitioner calls of a batched sweep over the UNIQUE
+        rotations of each side (many candidates share a permutation)."""
+        cfg = self.config
+        (tnum, td), (pnum, pd) = tc.shape, pc.shape
         task_sfc, proc_sfc = self._sfc_pair(td, pd)
+        ut, t_sel = _unique_perms([c.task_perm for c in cands], td)
+        up, p_sel = _unique_perms([c.proc_perm for c in cands], pd)
+        common = dict(nparts=min(tnum, pnum), longest_dim=cfg.longest_dim,
+                      uneven_prime=cfg.uneven_prime)
+        return SweepPlan(
+            task=dict(coords=tc, sfc=task_sfc, dim_orders=ut,
+                      weights=task_weights, **common),
+            proc=dict(coords=pc, sfc=proc_sfc, dim_orders=up,
+                      weights=None, **common),
+            t_sel=t_sel, p_sel=p_sel)
 
-        # dedup each side: many (task_perm, proc_perm) pairs share a perm
-        t_perms = [tuple(c.task_perm) if c.task_perm is not None
-                   else tuple(range(td)) for c in cands]
-        p_perms = [tuple(c.proc_perm) if c.proc_perm is not None
-                   else tuple(range(pd)) for c in cands]
-        ut = sorted(set(t_perms))
-        up = sorted(set(p_perms))
-        t_of = {p: i for i, p in enumerate(ut)}
-        p_of = {p: i for i, p in enumerate(up)}
-
-        common = dict(longest_dim=cfg.longest_dim,
-                      uneven_prime=cfg.uneven_prime,
-                      backend=self.order_backend)
-        mu_t = order_points_batched(tc, np_parts, task_sfc,
-                                    dim_orders=np.array(ut),
-                                    weights=task_weights, **common)
-        mu_p = order_points_batched(pc, np_parts, proc_sfc,
-                                    dim_orders=np.array(up), **common)
-
-        # vectorised GETMAPPINGARRAYS: part -> processor per proc rotation
-        # (pnum == np_parts here, so every part holds exactly one proc);
-        # int32 keeps the per-candidate assembly gathers cache-friendly
-        part_to_proc = np.full((len(up), np_parts), -1, dtype=np.int32)
-        part_to_proc[np.arange(len(up))[:, None], mu_p] = \
-            np.arange(pnum, dtype=np.int32)[None, :]
-        if (part_to_proc < 0).any():
-            missing = np.flatnonzero((part_to_proc < 0).any(axis=0))
-            raise ValueError(f"parts with no processor: {missing[:5]}")
-        mu_t = mu_t.astype(np.int32)
-
-        return [
-            MappingResult(
-                part_to_proc[p_of[pp]][mu_t[t_of[tp]]],
-                rotation=(tuple(c.task_perm or ()),
-                          tuple(c.proc_perm or ())))
-            for c, tp, pp in zip(cands, t_perms, p_perms)
-        ]
+    def _sweep_t2p(self, plan: SweepPlan) -> torch.Tensor:
+        """Every candidate's task -> processor of a batched sweep, on
+        the partition engine's device (the host for the numpy engine);
+        a part with no processor raises."""
+        if self.order_backend == "torch":
+            dev = torch.device(self.config.device)
+            sel = [torch.from_numpy(s).to(dev)
+                   for s in (plan.t_sel, plan.p_sel)]
+            mu = [partition(**kw, device=dev)
+                  for kw in (plan.task, plan.proc)]
+        else:
+            sel = [torch.from_numpy(s) for s in (plan.t_sel, plan.p_sel)]
+            mu = [torch.from_numpy(order_points_batched(
+                **kw, backend=self.order_backend))
+                for kw in (plan.task, plan.proc)]
+        t2p, ptp = assign_parts(*mu, *sel)
+        if bool((ptp < 0).any()):
+            raise missing_parts(ptp)
+        return t2p
 
     # -- stage 4: candidate search ---------------------------------------
 
@@ -384,8 +462,8 @@ class MappingPipeline:
                 "belongs to a later slice of the port; use "
                 "HierarchySpec.flat()")
         # span-derived stage timings (repro_torch.obs): the spans ARE the
-        # clocks — ``stats["timings"]`` is {partition_s, score_s,
-        # total_s}, derived from the span durations
+        # clocks — ``stats["timings"]`` is {fused_s | partition_s +
+        # score_s} + total_s, derived from the span durations
         timings = {}
         with obs.span("pipeline.map", hierarchy="flat",
                       partition_backend=self.partition_backend,
@@ -399,26 +477,47 @@ class MappingPipeline:
             sweep_points = int(len(tc) + alloc.n)
             root.annotate(sweep_points=sweep_points,
                           candidates=len(cands))
-            with obs.span("pipeline.partition",
-                          points=sweep_points) as sp:
-                results = self.map_candidates(
-                    tc, pc, cands, task_weights=task_weights)
-            timings["partition_s"] = sp.duration_s
-            with obs.span("pipeline.score",
-                          candidates=len(cands)) as sp:
-                if len(results) == 1:
-                    best = results[0]
-                else:
-                    best, best_i, scores = self.search.best(
-                        graph, alloc, results)
-                    best.score = float(scores[best_i][0])
-            timings["score_s"] = sp.duration_s
+            best = None
+            if self._fused is not None:
+                with obs.span("pipeline.fused") as sp:
+                    best = self._fused.run(graph, alloc, tc, pc, cands,
+                                           task_weights=task_weights)
+                if best is not None:
+                    # partition + match + score ran as one device pass;
+                    # the stage split does not exist here
+                    timings["fused_s"] = sp.duration_s
+            if best is None:
+                with obs.span("pipeline.partition",
+                              points=sweep_points) as sp:
+                    if self._per_candidate(tc, pc, cands):
+                        results = self.map_candidates(
+                            tc, pc, cands, task_weights=task_weights)
+                        t2p = np.stack([r.task_to_proc for r in results])
+                    else:
+                        t2p = self._sweep_t2p(self.sweep_plan(
+                            tc, pc, cands, task_weights))
+                timings["partition_s"] = sp.duration_s
+                with obs.span("pipeline.score",
+                              candidates=len(cands)) as sp:
+                    best_i, score = 0, float("nan")
+                    if len(cands) > 1:
+                        best_i, scores = self.search.best_of(
+                            graph, alloc, t2p)
+                        score = float(scores[best_i][0])
+                    row = t2p[best_i]
+                    if isinstance(row, torch.Tensor):
+                        row = row.to(torch.int32).cpu().numpy()
+                    best = MappingResult(row, score=score,
+                                         rotation=rotation_of(cands[best_i]))
+                timings["score_s"] = sp.duration_s
         timings["total_s"] = root.duration_s
         # stats schema v2: ONE per-level entry per mapped granularity
         # (flat = the single core level); the legacy keys (hierarchy /
         # sweep_points / timings) stay derived — see README
         # "MappingResult.stats schema"
-        map_s = timings["partition_s"] + timings["score_s"]
+        map_s = timings.get(
+            "fused_s",
+            timings.get("partition_s", 0.0) + timings.get("score_s", 0.0))
         best.stats.update(
             schema=2,
             hierarchy="flat",

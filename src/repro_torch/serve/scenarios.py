@@ -184,6 +184,7 @@ class Scenario:
     rotations: int = DEFAULT_ROTATIONS
     score_backend: str = "hopper"
     device: str = "cuda"
+    partition_backend: str = "torch"
 
     def __post_init__(self):
         for field, options in (("workload", WORKLOADS),
@@ -216,6 +217,7 @@ class Scenario:
                               hierarchy=HierarchySpec.from_string(
                                   self.hierarchy),
                               score_backend=self.score_backend,
+                              partition_backend=self.partition_backend,
                               device=self.device)
 
     def request(self) -> MappingRequest:
@@ -229,11 +231,12 @@ class Scenario:
 def all_scenarios(scale: int = DEFAULT_SCALE, seed: int = 0,
                   rotations: int = DEFAULT_ROTATIONS,
                   score_backend: str = "hopper",
-                  device: str = "cuda") -> list[Scenario]:
+                  device: str = "cuda",
+                  partition_backend: str = "torch") -> list[Scenario]:
     """The full cross-product (|workloads| x |allocations| x
     |hierarchies| x |objectives| scenarios) at one scale/seed."""
     return [Scenario(w, a, h, o, scale, seed, rotations, score_backend,
-                     device)
+                     device, partition_backend)
             for w in WORKLOADS for a in ALLOCATIONS
             for h in HIERARCHIES for o in OBJECTIVE_KEYS]
 
@@ -245,13 +248,16 @@ def scenario_names() -> list[str]:
 def get_scenario(name: str, scale: int = DEFAULT_SCALE, seed: int = 0,
                  rotations: int = DEFAULT_ROTATIONS,
                  score_backend: str = "hopper",
-                 device: str = "cuda") -> Scenario:
+                 device: str = "cuda",
+                 partition_backend: str = "torch") -> Scenario:
     """Scenario by ``workload-allocation-hierarchy-objective`` name;
-    ``score_backend`` and ``device`` go into its pipeline config."""
+    ``score_backend``, ``partition_backend`` and ``device`` go into its
+    pipeline config."""
     parts = name.split("-")
     if len(parts) != 4:
         raise ValueError(
             f"scenario name {name!r} is not "
             f"'workload-allocation-hierarchy-objective'")
     return Scenario(*parts, scale=scale, seed=seed, rotations=rotations,
-                    score_backend=score_backend, device=device)
+                    score_backend=score_backend, device=device,
+                    partition_backend=partition_backend)

@@ -173,9 +173,12 @@ def test_compat_translates_backend_names_and_rejects_device_partitioner():
     ).score_backend == "hopper"
     assert compat.pipeline_config(
         RConfig(score_backend="jax"), device="cpu").score_backend == "torch"
-    with pytest.raises(ValueError, match="later slice"):
-        compat.pipeline_config(RConfig(partition_backend="jax"),
-                               device="cpu")
+    # the device partitioner has its counterpart now: "jax" -> "torch"
+    assert compat.pipeline_config(
+        RConfig(partition_backend="jax"), device="cpu"
+    ).partition_backend == "torch"
+    assert compat.pipeline_config(
+        RConfig(), device="cpu").partition_backend == "numpy"
 
 
 def test_mapping_signature_equal_after_compat():

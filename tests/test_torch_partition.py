@@ -6,6 +6,7 @@ engines — on point clouds made with numpy from a seed."""
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core.orderings as RO
 import repro_torch.core.orderings as PO
@@ -127,6 +128,16 @@ def test_unknown_names_raise():
 
 
 def test_device_partitioner_is_refused_not_replaced():
+    # "torch" resolves to itself (on a device the process reaches), a
+    # reference-only name raises as unknown, and so does an unreachable
+    # device: nothing is replaced by the host engine
     assert PO.resolve_partition_backend("numpy") == "numpy"
-    with pytest.raises(ValueError, match="later slice"):
+    assert PO.resolve_partition_backend("torch", "cpu") == "torch"
+    with pytest.raises(ValueError, match="unknown partition backend"):
         PO.resolve_partition_backend("jax")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PO.resolve_partition_backend("torch", "cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PO.order_points(_cloud("random", 0, n=20), 4, "FZ",
+                            backend="torch")

@@ -87,7 +87,8 @@ def test_request_signatures_equal(name):
     assert port.signature() == ref.signature()
     # the port's own registry builds the same problem from the same seed
     own = get_scenario(name, scale=SCALE, rotations=ROTATIONS,
-                       score_backend="numpy", device="cpu").request()
+                       score_backend="numpy", partition_backend="numpy",
+                       device="cpu").request()
     assert own.signature() == ref.signature()
     assert np.array_equal(own.graph.edges, ref.graph.edges)
     assert np.array_equal(own.alloc.coords, ref.alloc.coords)
@@ -201,21 +202,30 @@ def test_non_flat_hierarchy_raises_naming_the_later_slice(hier):
 
 
 def test_device_partitioner_and_fused_modes():
-    with pytest.raises(ValueError, match="later slice"):
+    from repro_torch.mapping.fused import FusedSweep
+    with pytest.raises(ValueError, match="unknown partition backend"):
         MappingPipeline(PipelineConfig(partition_backend="jax",
                                        score_backend="torch", device="cpu"))
     with pytest.raises(ValueError, match="unknown fused mode"):
         MappingPipeline(PipelineConfig(fused="on", score_backend="torch",
                                        device="cpu"))
-    for fused in ("auto", "off"):
-        MappingPipeline(PipelineConfig(fused=fused, score_backend="torch",
-                                       device="cpu"))
+    auto = MappingPipeline(PipelineConfig(
+        partition_backend="torch", fused="auto", score_backend="torch",
+        device="cpu"))
+    assert isinstance(auto._fused, FusedSweep)
+    assert auto.order_backend == "torch"
+    off = MappingPipeline(PipelineConfig(
+        partition_backend="torch", fused="off", score_backend="torch",
+        device="cpu"))
+    assert off._fused is None and off.order_backend == "torch"
 
 
 def test_device_rule_defaults_and_refusals():
     cfg = PipelineConfig()
-    assert (cfg.device, cfg.score_backend) == ("cuda", "hopper")
+    assert (cfg.device, cfg.score_backend, cfg.partition_backend) == \
+        ("cuda", "hopper", "torch")
     assert MapperConfig().device == "cuda"
+    assert MapperConfig().partition_backend == "torch"
     with pytest.raises(ValueError, match="hopper"):
         MappingPipeline(PipelineConfig(device="cpu"))
     with pytest.raises(ValueError, match="unknown scoring backend"):
