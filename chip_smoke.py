@@ -37,6 +37,26 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    the host-engine candidate that the numpy evaluator picks; then warm,
    a batch with a duplicate, and each scenario with ``fused="off"`` (the
    staged device path, same answers) for its stage timings.
+   ``hier``    — the same service answers four hierarchical requests cold
+   at ``--scale`` tasks: ``minighost-xk7_sparse-node-wh`` and
+   ``-node-latency`` (16,384 clusters: coarsening on the device
+   partitioner, the top sweep through the fused sweep with the swap
+   refinement on the card, K1 in its loop for the latency one),
+   ``homme-bgq_block-depth3-latency`` and ``minighost-xk7_sparse-depth3-wh``
+   (a 4-unit group level on top: staged sweep, then ``refine_qap``,
+   ``polish_groups`` and the node level's ``refine_swaps`` on the host,
+   K1 scoring the latency objective).  Each answer must be a bijection,
+   not degraded, of the hierarchy and depth asked, ``fused_refine``
+   exactly where the top level swaps, with monotone histories, K1
+   launched once a pipeline evaluator call plus the fused pass's own,
+   segscan (the top sweep is weighted by cluster sizes) at least once;
+   and equal, bit for bit, to the all-host path (numpy partitioner and
+   scorer, ``fused="off"``) for WeightedHops and to the staged path with
+   the same K1 scorer for the latency objective.  Before them: the fused
+   refinement against the host pass on the card for tied and zero
+   contributions, and K1 on one stack whole, in halves and with the host
+   evaluator's group bound, bit for bit.  Times sit beside the flat
+   request of the same scenario from ``serve``.
 4. ``attention`` — the flash-attention kernel against its plain-torch
    version on the card: MHA, GQA 4:1 and MQA, ragged S (80; 4000), head
    dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
@@ -78,10 +98,10 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    block at 6 sites) in bfloat16, the same checks: per prefill 38 SSD and
    6 flash-attention launches.
 
-With ``--profile`` three more ``profile`` lines give the device time by
+With ``--profile`` four more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
-of one mapscore launch at the largest shape and one more cold request
-(the fused path),
+of one mapscore launch at the largest shape, one more cold request
+(the fused path), one cold ``minighost-xk7_sparse-node-latency`` request,
 and of one bfloat16 prefill and one decode step of yi-6b and of
 mamba2-2.7b.
 
@@ -1292,6 +1312,19 @@ def profile_phase(problem, scale, rotations) -> None:
     request = device_profile(lambda: svc.map(cold))
     emit("profile", kernel_launch=launch, cold_request=request,
          scenario=SCENARIOS[1], scale=scale)
+    hier_profile(scale, rotations)
+
+
+def hier_profile(scale, rotations) -> None:
+    """One cold node-latency request (the fused sweep and the refinement
+    on the card) through a fresh service: device time by name, idle
+    share."""
+    from repro_torch.serve import MappingService, get_scenario
+    node = get_scenario(HIER_SCENARIOS[1], scale=scale,
+                        rotations=rotations).request()
+    svc = MappingService()
+    emit("profile", cold_request=device_profile(lambda: svc.map(node)),
+         scenario=HIER_SCENARIOS[1], scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -1443,6 +1476,428 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
             "service": {k: stats[k] for k in ("cold", "warm", "coalesced")}}
 
 
+# ---------------------------------------------------------------------------
+# phase hier: node and depth-3 requests through the hierarchy
+# ---------------------------------------------------------------------------
+
+HIER_SCENARIOS = ("minighost-xk7_sparse-node-wh",
+                  "minighost-xk7_sparse-node-latency",
+                  "homme-bgq_block-depth3-latency",
+                  "minighost-xk7_sparse-depth3-wh")
+# the flat request of the same workload, allocation and objective (phase
+# serve) each hierarchical one is set beside
+HIER_FLAT = {n: n.replace("-node-", "-flat-").replace("-depth3-", "-flat-")
+             for n in HIER_SCENARIOS}
+# a served latency history against the all-numpy one: K1 sums float32
+# volumes, the numpy router float64 ones (tests/test_torch_hier.py's
+# LAT_RTOL)
+HIER_LAT_RTOL = 1e-6
+REFINE_KEYS = ("refine_rounds_run", "refine_accepted", "refine_evaluated",
+               "refine_history", "refine_initial", "refine_final")
+
+
+def refine_trap_cases() -> list:
+    """The fused refinement on the card against the host ``refine_swaps``
+    from the same scrambled start, on 16 clusters of a 4x4 torus: a ring
+    of equal volumes (every contribution and many hop distances tie) and
+    a 4-cluster ring (twelve contributions 0, -0.0 once negated, which
+    only the card's radix sort tells from 0.0), both objectives (K1 for
+    the latency one), bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core import TaskGraph, make_machine
+    from repro_torch.core.metrics_torch import message_inputs
+    from repro_torch.hier import refine_swaps
+    from repro_torch.mapping import MappingPipeline, PipelineConfig
+    from repro_torch.mapping.fused import _Refinement
+    m = make_machine((4, 4), wrap=True)
+    rc = np.stack(np.unravel_index(np.arange(16), (4, 4)), axis=1)
+    start = np.random.default_rng(5).permutation(16)
+    out = []
+    for case, n in (("ties", 16), ("zeros", 4)):
+        src = np.arange(n)
+        edges = np.concatenate([np.stack([src, (src + 1) % n], 1),
+                                np.stack([(src + 1) % n, src], 1)])
+        g = TaskGraph(np.zeros((16, 2)), edges, np.full(len(edges), 3.0))
+        for obj in OBJECTIVES.values():
+            want_c, want = refine_swaps(m, g, rc, start, objective=obj,
+                                        rounds=4, top=8, degree=3,
+                                        score_backend="hopper",
+                                        device="cuda")
+            pipe = MappingPipeline(PipelineConfig(objective=obj))
+            traffic = pipe.search.needs_traffic
+            edges_t, w, inv_bw = message_inputs(m, g.edges, g.weights,
+                                                traffic, "cuda")
+            ref = _Refinement(pipe._fused, m, torch.from_numpy(
+                rc.astype(np.int32)).cuda(), edges_t, w, inv_bw, g, traffic,
+                pipe.search.objective)
+            row, got, reads = ref.run(torch.from_numpy(start).cuda(),
+                                      rounds=4, top=8, degree=3)
+            check(np.array_equal(row, want_c) and got == want,
+                  f"refine trap {case} {obj}: device {got} vs host {want}")
+            out.append({"case": case, "objective": list(obj),
+                        "rounds_run": got["refine_rounds_run"],
+                        "accepted": got["refine_accepted"], "reads": reads})
+    return out
+
+
+def k1_split_case(problem) -> dict:
+    """K1's result for a candidate must not depend on the launch or the
+    group it shares: the full-size xk7 stack scored whole, in two halves,
+    and whole with the host evaluator's group bound, bit for bit (the
+    fused refinement scores its proposals in other launches than the
+    host pass it is held to)."""
+    import torch
+    from repro_torch.core.metrics_torch import scoring_inputs
+    from repro_torch.kernels.mapscore import ops
+    req, stack = problem["req"], problem["stack"]
+    m = req.alloc.machine
+    cs, edges, w, inv_bw = scoring_inputs(
+        m, req.graph.edges, req.graph.weights, stack, True, "cuda")
+    kw = dict(dims=m.dims, wrap=m.wrap, core_dims=m.core_dims, traffic=True)
+    whole = ops.mapscore(cs, edges, w, inv_bw, **kw)
+    h = len(cs) // 2
+    parts = [ops.mapscore(cs[:h].contiguous(), edges, w, inv_bw, **kw),
+             ops.mapscore(cs[h:].contiguous(), edges, w, inv_bw, **kw)]
+    bound = ops.unpack(ops._scores(cs, edges, w, inv_bw, group_elems=1 << 24,
+                                   **kw), len(cs), True)
+    keys = ("weighted_hops", "total_hops", "data_max", "latency_max")
+    for key in keys:
+        split = torch.cat([p[key] for p in parts])
+        check(torch.equal(whole[key], split)
+              and torch.equal(whole[key], bound[key]),
+              f"K1 {key}: a candidate's result depends on its launch")
+    return {"case": f"{req.graph.n} tasks, nb {len(cs)}", "halves": h,
+            "group_elems": [ops.GROUP_ELEMS, 1 << 24], "bit_equal": True}
+
+
+def k1_proposal_case(name, scale, rotations) -> dict:
+    """K1 against its plain version (``ref.mapscore_ref``) on the card at
+    the shapes the fused refinement gives it: one round's proposal stack
+    of a node-latency request (the coarse graph's messages, P = top *
+    degree edited stacks of every router), from a seeded start, with
+    ``compare_case``'s tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.core.metrics_torch import message_inputs
+    from repro_torch.hier import aggregate_tasks, router_view
+    from repro_torch.mapping import MappingPipeline
+    from repro_torch.mapping.fused import _Refinement
+    from repro_torch.serve import get_scenario
+    req = get_scenario(name, scale=scale, rotations=rotations).request()
+    rc, _, router_alloc = router_view(req.alloc)
+    n = len(rc)
+    coarse = aggregate_tasks(req.graph, n, sfc=req.config.sfc,
+                             device="cuda").coarse
+    m = router_alloc.machine
+    pipe = MappingPipeline(req.config)
+    lvl = req.config.hierarchy.levels[-1]
+    edges, w, inv_bw = message_inputs(m, coarse.edges, coarse.weights, True,
+                                      "cuda")
+    acoords = torch.from_numpy(np.ascontiguousarray(
+        router_alloc.coords, dtype=np.int32)).cuda()
+    ref = _Refinement(pipe._fused, m, acoords, edges, w, inv_bw, coarse,
+                      True, pipe.search.objective)
+    c2r = torch.from_numpy(np.random.default_rng(0).permutation(n)).cuda()
+    r2c = torch.empty_like(c2r)
+    r2c[c2r] = torch.arange(n, device="cuda")
+    a, ra, b, rb, _, _ = ref.proposal_pairs(
+        c2r, r2c, min(lvl.refine_top, n), min(lvl.refine_degree, n - 1))
+    stack = ref._edit(acoords[c2r], a, b, ra, rb).cpu().numpy()
+    return compare_case(f"{name} round proposals", m, coarse.edges,
+                        coarse.weights, stack)
+
+
+def coarsen_split(req) -> dict:
+    """Where a node request's host-side time goes, by part, at full size
+    (median of 3, host clock; every device call synchronised): the
+    coarsening's cluster labels (the device partitioner), the whole
+    ``aggregate_tasks`` (labels plus the host contractions), and the
+    expansion to cores (``assign_cores``, host)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.orderings import order_points
+    from repro_torch.hier import aggregate_tasks, assign_cores, router_view
+    rc, core_router, _ = router_view(req.alloc)
+    tc = np.asarray(req.graph.coords, dtype=np.float64)
+    n = len(rc)
+
+    def labels():
+        out = order_points(tc, n, req.config.sfc, backend="torch",
+                           device="cuda")
+        torch.cuda.synchronize()
+        return out
+
+    def timed(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), out
+
+    labels_s, _ = timed(labels)
+    agg_s, agg = timed(lambda: aggregate_tasks(req.graph, n, device="cuda",
+                                               backend="torch"))
+    c2r = np.arange(n)
+    expand_s, _ = timed(lambda: assign_cores(agg.labels, c2r, core_router,
+                                             tc, n))
+    return {"labels_s": labels_s, "aggregate_s": agg_s,
+            "contraction_s": agg_s - labels_s, "assign_cores_s": expand_s,
+            "coarse_edges": int(len(agg.coarse.edges))}
+
+
+def hier_spans(trace_id) -> dict:
+    """What the refinement of one request read back from the card: the
+    fused pass's own count, or the device scorer's copies
+    (``score.hopper`` spans) of the host passes under ``pipeline.refine``
+    / ``pipeline.polish`` (the numpy scorer reads nothing back); and
+    the K1 launches the pipeline's evaluator made (every ``score.hopper``
+    span)."""
+    from repro_torch import obs
+    spans = obs.finished(trace_id)
+    by_id = {s.span_id: s for s in spans}
+
+    def under_refine(s):
+        p = by_id.get(s.parent_id)
+        while p is not None:
+            if p.name in ("pipeline.refine", "pipeline.polish"):
+                return True
+            p = by_id.get(p.parent_id)
+        return False
+
+    fused = [s for s in spans if s.name == "pipeline.fused"]
+    host_reads = sum(1 for s in spans if s.name == "score.hopper"
+                     and under_refine(s))
+    return {"fused_reads": (fused[0].attrs.get("refine_host_reads", 0)
+                            if fused else 0),
+            "host_reads": host_reads,
+            "evaluator_k1": sum(1 for s in spans if s.name == "score.hopper")}
+
+
+def hier_answer(name, req, res) -> dict:
+    """The served hierarchical answer's checks: a valid assignment, the
+    hierarchy and depth asked, ``fused_refine`` exactly where the top
+    level swaps (scored by K1), monotone histories."""
+    spec = req.config.hierarchy
+    st = res.stats
+    check_answer(name, req, res)
+    check(st["hierarchy"] == name.split("-")[2] and st["depth"] == spec.depth
+          and len(st["levels"]) == spec.depth - 1,
+          f"{name}: hierarchy {st['hierarchy']} depth {st['depth']}")
+    top_swap = spec.levels[-1].refine_mode == "swap"
+    check(bool(st.get("fused_refine")) == top_swap,
+          f"{name}: fused_refine {st.get('fused_refine')}, top level "
+          f"{spec.levels[-1].refine_mode}")
+    if top_swap:
+        check(st["fused_score_backend"] == "hopper",
+              f"{name}: refined with {st['fused_score_backend']}")
+    hists = [st["refine_history"]] + [lv["refine_history"]
+                                      for lv in st["levels"]]
+    for hist in hists:
+        check(all(tuple(b) <= tuple(a) for a, b in zip(hist, hist[1:])),
+              f"{name}: refine history not monotone: {hist}")
+    for lv in st["levels"]:
+        if "polish_initial" in lv:
+            check(lv["polish_final"] <= lv["polish_initial"],
+                  f"{name}: polish went up: {lv}")
+    return {"polish_s": sum(lv.get("polish_s", 0.0) for lv in st["levels"]),
+            "fused_refine": bool(st.get("fused_refine")),
+            "levels": [{k: v for k, v in lv.items()
+                        if not k.endswith("history")} for lv in st["levels"]]}
+
+
+def same_refinement(name, what, got, want) -> None:
+    import numpy as np
+    check(np.array_equal(got.task_to_proc, want.task_to_proc)
+          and got.rotation == want.rotation,
+          f"{name}: the {what} assignment differs")
+    for k in REFINE_KEYS:
+        check(got.stats[k] == want.stats[k],
+              f"{name}: {k} {got.stats[k]} vs the {what} {want.stats[k]}")
+    for a, b in zip(got.stats["levels"], want.stats["levels"]):
+        for k in ("refine_history", "polish_final", "polish_accepted"):
+            check(a.get(k) == b.get(k),
+                  f"{name}: level {a['level']} {k} vs the {what}")
+
+
+def numpy_oracle(name, scale, rotations) -> dict:
+    """The all-numpy path's answer to a hierarchical request (host
+    partitioner and scorer, ``fused="off"``; the numpy router scores
+    every latency proposal, about a minute a request on one core): its
+    history and seconds.  Runs in a worker process of its own."""
+    import dataclasses
+    from repro_torch.mapping import MappingPipeline
+    from repro_torch.serve import get_scenario
+    req = get_scenario(name, scale=scale, rotations=rotations, device="cpu",
+                       partition_backend="numpy",
+                       score_backend="numpy").request()
+    t0 = time.perf_counter()
+    res = MappingPipeline(dataclasses.replace(req.config, fused="off")).map(
+        req.graph, req.alloc)
+    return {"refine_history": res.stats["refine_history"],
+            "refine_final": res.stats["refine_final"],
+            "seconds": time.perf_counter() - t0}
+
+
+def numpy_oracles(served, scale, rotations) -> list:
+    """The all-numpy path's answers to the latency requests of phase
+    ``hier``, one spawned worker each, all at once, run after the last
+    timed phase so that no host-clock time is taken beside them.  The
+    served answer (K1, float32 volumes) must match each history within
+    ``HIER_LAT_RTOL``, entry by entry: the one answer on this path that
+    no kernel computed."""
+    import concurrent.futures
+    import multiprocessing
+    import numpy as np
+    served = {r["scenario"]: r for r in served}
+    names = [n for n in HIER_SCENARIOS if n.endswith("-latency")]
+    with concurrent.futures.ProcessPoolExecutor(
+            len(names), mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        pending = {n: pool.submit(numpy_oracle, n, scale, rotations)
+                   for n in names}
+        got = {n: f.result(timeout=600) for n, f in pending.items()}
+    out = []
+    for name in names:
+        want, hist = got[name], served[name]["refine_history"]
+        whist = want["refine_history"]
+        gap = (hist[-1][0] - want["refine_final"]) / want["refine_final"]
+        check(abs(gap) <= HIER_LAT_RTOL and len(hist) == len(whist)
+              and all(np.allclose(a, b, rtol=HIER_LAT_RTOL, atol=0)
+                      for a, b in zip(hist, whist)),
+              f"{name}: served history {hist} vs all-numpy {whist} "
+              f"(rtol {HIER_LAT_RTOL})")
+        out.append({"scenario": name, "served_final": hist[-1][0],
+                    "numpy_final": want["refine_final"],
+                    "relative_gap": gap, "rtol": HIER_LAT_RTOL,
+                    "numpy_history": whist, "numpy_s": want["seconds"]})
+    return out
+
+
+def hier_phase(serve, problems, scale, rotations) -> dict:
+    """Cold node and depth-3 requests through a ``MappingService`` with
+    the default config: coarsening on the device partitioner, the top
+    sweep through the one-pass fused sweep with the refinement of a
+    ``swap`` top level on the card (K1 in its loop for the latency
+    objective), or staged with the host passes scoring through K1.  Each
+    answer is held to its oracle: the all-host path (numpy partitioner
+    and scorer, ``fused="off"``) for WeightedHops, the staged path with
+    the same K1 scorer for the latency objective, bit for bit.  K1 is
+    held to its plain version on a node-latency round's proposal stack
+    here, and the latency answers to the all-numpy path by
+    :func:`numpy_oracles` after the last timed phase."""
+    import dataclasses
+    import torch
+    from repro_torch.core.signature import mapping_signature
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mapscore import ops
+    from repro_torch.kernels.segscan import ops as seg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.mapping import CandidateSearch, MappingPipeline
+    from repro_torch.serve import MappingService, get_scenario
+
+    traps = refine_trap_cases()
+    k1_proposals = k1_proposal_case(HIER_SCENARIOS[1], scale, rotations)
+    k1_split = k1_split_case(problems[SCENARIOS[0].rsplit("-", 1)[0]])
+    flat = {r["scenario"]: r for r in serve["requests"]} if serve else {}
+    svc = MappingService()
+    reqs = [get_scenario(n, scale=scale, rotations=rotations).request()
+            for n in HIER_SCENARIOS]
+    # the main path's only
+    ops.launch_count = seg_ops.launch_count = 0
+    fa_ops.launch_count = ssd_ops.launch_count = 0
+    served = []
+    for name, req in zip(HIER_SCENARIOS, reqs):
+        k1, seg = ops.launch_count, seg_ops.launch_count
+        resp = svc.map(req)
+        torch.cuda.synchronize()
+        check(resp.status == "cold", f"{name}: first answer {resp.status}")
+        res = resp.result
+        rec = {"scenario": name, "tasks": int(req.graph.n),
+               "edges": int(len(req.graph.edges)),
+               "hierarchy": res.stats["hierarchy"],
+               "depth": res.stats["depth"],
+               "cold_s": resp.latency_s, "score": res.score,
+               "refine_rounds_run": res.stats["refine_rounds_run"],
+               "refine_accepted": res.stats["refine_accepted"],
+               "refine_evaluated": res.stats["refine_evaluated"],
+               "refine_history": res.stats["refine_history"],
+               "nclusters": res.stats["nclusters"],
+               "sweep_points": res.stats["sweep_points"],
+               "k1_launches": ops.launch_count - k1,
+               "segscan_launches": seg_ops.launch_count - seg,
+               **hier_answer(name, req, res), **res.stats["timings"],
+               **hier_spans(res.stats["trace_id"])}
+        rec["refine_reads"] = (rec["fused_reads"] if rec["fused_refine"]
+                               else rec["host_reads"])
+        # what the cold answer spent hashing the request (recomputed)
+        t0 = time.perf_counter()
+        check(mapping_signature(req.graph, req.alloc, req.config)
+              == req.signature(), f"{name}: signature recomputed differs")
+        rec["signature_s"] = time.perf_counter() - t0
+        # K1: one launch a pipeline evaluator call; the fused pass adds
+        # the sweep's and, for the latency objective, its refinement's
+        # (the base, each round's proposals, each accepted round's
+        # rescoring) — none for WeightedHops, summed exactly in float64
+        want_k1 = rec["evaluator_k1"]
+        if rec["fused_refine"]:
+            want_k1 += 1
+            if name.endswith("-latency"):
+                want_k1 += rec["fused_reads"] + rec["refine_rounds_run"]
+        check(rec["k1_launches"] == want_k1 > 0,
+              f"{name}: {rec['k1_launches']} K1 launches, expected "
+              f"{want_k1}")
+        # the top sweep is weighted by the cluster sizes: segscan runs
+        check(rec["segscan_launches"] > 0, f"{name}: segscan never ran")
+        served.append(rec)
+    launches = ops.launch_count
+    seg_launches = seg_ops.launch_count
+    check(fa_ops.launch_count == ssd_ops.launch_count == 0,
+          "the hierarchical path launched a model kernel")
+    split = coarsen_split(reqs[0])
+
+    # -- oracles -------------------------------------------------------
+    for name, req, rec in zip(HIER_SCENARIOS, reqs, served):
+        got = svc.results.get(req.signature(), count=False)
+        # the answer scored as the flat request scores its candidates
+        # (fine graph, K1): a latency objective's refine_final is the
+        # coarse graph's, whose messages all sit on core row 0 of the
+        # router's link tables, so it is not the fine mapping's
+        search = CandidateSearch(req.config.objective, backend="hopper",
+                                 device="cuda")
+        rec["fine_score"] = float(search.score_assignments(
+            req.graph, req.alloc, got.task_to_proc[None])[0][0])
+        f = flat.get(HIER_FLAT[name])
+        if f is not None:
+            rec["flat"] = {"scenario": HIER_FLAT[name],
+                           "cold_s": f["cold_s"], "score": f["score"],
+                           "fine_score_ratio": rec["fine_score"] / f["score"],
+                           "cold_ratio": rec["cold_s"] / f["cold_s"]}
+        if name.endswith("-wh"):
+            host = dataclasses.replace(req.config, partition_backend="numpy",
+                                       score_backend="numpy", fused="off")
+            t0 = time.perf_counter()
+            want = MappingPipeline(host).map(req.graph, req.alloc)
+            rec["oracle"] = "all-host"
+            rec["oracle_s"] = time.perf_counter() - t0
+            same_refinement(name, "all-host", got, want)
+        else:
+            staged = dataclasses.replace(req.config, fused="off")
+            t0 = time.perf_counter()
+            want = MappingPipeline(staged).map(req.graph, req.alloc)
+            torch.cuda.synchronize()
+            rec["oracle"] = "staged K1"
+            rec["oracle_s"] = time.perf_counter() - t0
+            same_refinement(name, "staged K1", got, want)
+            if rec["fused_refine"]:
+                rec["staged"] = dict(want.stats["timings"])
+    return {"requests": served, "kernel_launches": launches,
+            "segscan_launches": seg_launches, "refine_traps": traps,
+            "k1_split": k1_split, "k1_proposals": k1_proposals,
+            "node_split": split}
+
+
 def mapping_phases(scale, rotations, profile) -> dict:
     """Phases ``kernels``, ``partition`` and ``serve``: the mapping paths
     (K1, the device partitioner with segscan, the served requests)."""
@@ -1494,11 +1949,15 @@ def mapping_phases(scale, rotations, profile) -> dict:
     # -- phase 4: serve -----------------------------------------------------
     serve = serve_phase(problems, weighted, scale, rotations)
     emit("serve", scale=scale, rotations=rotations, **serve)
+
+    # -- phase hier: node and depth-3 requests -------------------------------
+    hier = hier_phase(serve, problems, scale, rotations)
+    emit("hier", scale=scale, rotations=rotations, **hier)
     if profile:
         profile_phase(problems[SCENARIOS[1].rsplit("-", 1)[0]], scale,
                       rotations)
     return {"small": small, "full": full, "partition": part,
-            "serve": serve}
+            "serve": serve, "hier": hier}
 
 
 # ---------------------------------------------------------------------------
@@ -1566,6 +2025,14 @@ def main(argv=None) -> int:
     emit("hybrid_model", **{k: v for k, v in hybrid.items()
                             if k != "prefill_last"})
 
+    # -- the hier phase's all-numpy latency answers, after every timed phase
+    emit("hier_numpy", requests=numpy_oracles(
+        mapping["hier"]["requests"], args.scale, args.rotations),
+         note="all-numpy path (numpy partitioner, scorer and router), "
+              "fused='off', one worker process a request, after the last "
+              "timed phase; the served answer's latency comes from "
+              "float32 volumes (K1)")
+
     # -- the kernels line ---------------------------------------------------
     fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
     sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED[0])
@@ -1577,7 +2044,11 @@ def main(argv=None) -> int:
         "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
         "replaces": "src/repro/kernels/mapscore/kernel.py:204",
-        "launches": mapping["serve"]["kernel_launches"],
+        "launches": (mapping["serve"]["kernel_launches"]
+                     + mapping["hier"]["kernel_launches"]),
+        "launches_by_path": {
+            "serve": mapping["serve"]["kernel_launches"],
+            "hier": mapping["hier"]["kernel_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in small + full),
         "ms": lead["ms_traffic"], "plain_ms": lead["plain_ms_traffic"],
         "bound_ms": lead["bound_ms_traffic"],
@@ -1622,7 +2093,11 @@ def main(argv=None) -> int:
         "note": "no Pallas counterpart: the sequential lax.scan of the "
                 "reference's device partitioner, kept sequential for "
                 "bit-identity",
-        "launches": mapping["serve"]["segscan_launches"],
+        "launches": (mapping["serve"]["segscan_launches"]
+                     + mapping["hier"]["segscan_launches"]),
+        "launches_by_path": {
+            "serve": mapping["serve"]["segscan_launches"],
+            "hier": mapping["hier"]["segscan_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in seg),
         "ms": seg_lead["ms"], "plain_ms": seg_lead["plain_ms"],
         "bound_ms": seg_lead["bound_ms"], "bound_by": seg_lead["bound_by"],

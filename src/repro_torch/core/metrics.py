@@ -222,6 +222,23 @@ def _accumulate_circular(out, row, nrows, s, start, length, w, dims, k):
 # Batched candidate evaluation (the mapping pipeline's scoring engine)
 # ---------------------------------------------------------------------------
 
+# memory cap on one slice of edited proposal stacks: host memory in the
+# refinement passes (hier.refine), device memory in the fused refinement
+# (mapping.fused); one slice for every realistic round
+STACK_BYTE_BUDGET = 1 << 28
+
+
+def lex_less(a, b, tol: float = 1e-12) -> bool:
+    """Strict lexicographic a < b of two score rows, with a tolerance per
+    component (the refinement passes' acceptance test)."""
+    for x, y in zip(a, b):
+        if x < y - tol:
+            return True
+        if x > y + tol:
+            return False
+    return False
+
+
 SCORE_BACKENDS = ("numpy", "torch", "hopper")
 
 

@@ -23,7 +23,7 @@
   (:mod:`repro_torch.mapping.fused`).
 
 ``core.mapping.Mapper`` is a thin adapter over this class.  A non-flat
-hierarchy is not part of this package yet.
+hierarchy maps through :func:`repro_torch.hier.levels.map_hierarchical`.
 """
 
 from __future__ import annotations
@@ -118,7 +118,6 @@ class PipelineConfig:
                   on the way down.  The legacy strings "flat"/"node"
                   are accepted as deprecated aliases (normalised to
                   the equivalent spec with one DeprecationWarning).
-                  Only the flat spec maps in this package so far.
       refine_rounds / refine_top / refine_degree : DEPRECATED — the old
                   flat refinement knobs.  When set (non-None) they fold
                   into every level of the spec and warn; use the
@@ -445,10 +444,12 @@ class MappingPipeline:
         the partitioner, batched scoring; returns the best MappingResult
         (score = objective).
 
-        A non-flat :class:`HierarchySpec` raises
-        ``NotImplementedError``: the hierarchical path (coarsen, sweep
-        at the top granularity, expand and refine level by level) is a
-        later slice of the port.
+        A non-flat :class:`HierarchySpec` routes through
+        :mod:`repro_torch.hier` instead: coarsen tasks level by level,
+        run the SAME rotation sweep at the TOP granularity (with a
+        ``swap`` top level, the one-pass device sweep folds that level's
+        refinement in), then expand downward one level at a time with a
+        refinement pass per level.
         """
         cfg = self.config
         if not isinstance(cfg.hierarchy, HierarchySpec):
@@ -456,11 +457,10 @@ class MappingPipeline:
             # when a caller mutates cfg.hierarchy afterwards
             normalize_config_hierarchy(cfg)
         if not cfg.hierarchy.is_flat:
-            raise NotImplementedError(
-                f"hierarchy {cfg.hierarchy.kind!r} is not mapped by "
-                "repro_torch yet: the hierarchical path (repro.hier) "
-                "belongs to a later slice of the port; use "
-                "HierarchySpec.flat()")
+            from repro_torch.hier.levels import map_hierarchical
+            return map_hierarchical(self, graph, alloc,
+                                    task_coords=task_coords,
+                                    task_weights=task_weights)
         # span-derived stage timings (repro_torch.obs): the spans ARE the
         # clocks — ``stats["timings"]`` is {fused_s | partition_s +
         # score_s} + total_s, derived from the span durations

@@ -6,8 +6,10 @@ fused program (``partition_backend="jax"``, ``score_backend="jax"``) on
 Hilbert: the same winner, rotation and ``task_to_proc``, the score within
 ``rtol=1e-5``.  Also: ineligible stacks take the staged path with the
 device partitioner, ``fused="off"`` serves the same answer, task weights,
-the fault site, and a default-config ``MappingService`` on the CPU
-serving the reference's answer.
+the fault site, a default-config ``MappingService`` on the CPU
+serving the reference's answer, and the ``refine=`` keyword (the
+hierarchy's device swap refinement) against the host ``refine_swaps``
+and the reference's fused program.
 """
 
 import dataclasses
@@ -214,3 +216,87 @@ def test_assign_parts_reports_parts_without_a_processor():
     assert int(ptp.min()) < 0
     with pytest.raises(ValueError, match=r"parts with no processor: \[1\]"):
         raise missing_parts(ptp)
+
+
+
+def _coarse_problem():
+    """(reference coarse graph, router alloc), (port ones): 256 stencil
+    tasks contracted onto the 64 routers of a fragmented allocation of
+    an (8, 4, 4) Gemini torus, with integer volumes."""
+    import repro.hier as RH
+    from repro.core import gemini_xk7, sfc_allocation, stencil_graph
+    alloc = sfc_allocation(gemini_xk7(dims=(8, 4, 4), cores_per_node=4),
+                           256, nfragments=2, seed=3)
+    g = stencil_graph((16, 4, 4))
+    g.weights = np.random.default_rng(0).integers(1, 9, len(g.edges)) * 1.0
+    _, _, ralloc = RH.router_view(alloc)
+    coarse = RH.aggregate_tasks(g, ralloc.n).coarse
+    return (coarse, ralloc), (compat.taskgraph(coarse),
+                              compat.allocation(ralloc))
+
+
+def _refine_inputs(pipe, graph, alloc):
+    from repro_torch.mapping.candidates import rotation_candidates
+    pc = pipe.machine_coords(alloc)
+    tc = np.asarray(graph.coords, dtype=np.float64)
+    return tc, pc, rotation_candidates(tc.shape[1], pc.shape[1], 4)
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_refine_keyword_folds_in_the_host_swap_pass(objective):
+    """``run(..., refine=)``: the sweep's winner refined on the device
+    equals the host ``refine_swaps`` from that winner and the reference's
+    fused program with the same spec (histories: bit for bit for the
+    integer volumes of WeightedHops, ``rtol=1e-6`` for the latency
+    scored from float32 volumes)."""
+    from repro.hier import refine_swaps as rrefine
+    from repro.mapping.candidates import rotation_candidates as rrot
+    from repro_torch.hier import refine_swaps
+    (rg, ra), (pg, pa) = _coarse_problem()
+    spec = dict(rounds=3, top=16, degree=4)
+    pipe = _port(rotations=4, objective=objective)
+    tc, pc, cands = _refine_inputs(pipe, pg, pa)
+    plain = pipe._fused.run(pg, pa, tc, pc, cands)
+    got = pipe._fused.run(pg, pa, tc, pc, cands, refine=spec)
+    assert "fused_refine" not in plain.stats
+    assert got.stats["fused_refine"] is True
+    assert got.stats["winner_index"] == plain.stats["winner_index"]
+    assert got.rotation == plain.rotation
+    want_c, want = refine_swaps(
+        pa.machine, pg, pa.coords, plain.task_to_proc,
+        objective=pipe.search.objective, score_backend="torch",
+        device="cpu", **spec)
+    assert want["refine_accepted"] > 0
+    assert np.array_equal(got.task_to_proc, want_c)
+    assert got.task_to_proc.dtype == np.int32
+    for k, v in want.items():
+        assert got.stats[k] == v, k
+    assert got.score == want["refine_final"]
+
+    rpipe = RPipeline(RConfig(rotations=4, objective=objective,
+                              score_backend="jax", partition_backend="jax"))
+    rfused = rpipe._fused.run(rg, ra, tc, pc, rrot(3, 3, 4), refine=spec)
+    assert np.array_equal(rfused.task_to_proc, got.task_to_proc)
+    assert rfused.stats["refine_accepted"] == got.stats["refine_accepted"]
+    for x, y in zip(rfused.stats["refine_history"],
+                    got.stats["refine_history"]):
+        assert np.allclose(x, y, rtol=1e-6 if len(x) > 1 else 0, atol=0)
+    host_c, _ = rrefine(ra.machine, rg, ra.coords, plain.task_to_proc,
+                        objective=pipe.search.objective, **spec)
+    assert np.array_equal(host_c, got.task_to_proc)
+
+
+def test_refine_keyword_only_refines_a_bijection():
+    """More tasks than processors: the sweep still runs, the refinement
+    is left to the caller's host pass (no ``fused_refine``)."""
+    from repro.core import logical_mesh_graph
+    (_, _), (_, pa) = _mesh_problem()
+    g = compat.taskgraph(logical_mesh_graph((16, 8), (8.0, 64.0),
+                                            ("data", "model")))
+    pipe = _port(rotations=4)
+    tc, pc, cands = _refine_inputs(pipe, g, pa)
+    res = pipe._fused.run(g, pa, tc, pc, cands,
+                          refine=dict(rounds=2, top=8, degree=4))
+    assert res.stats["fused"] is True
+    assert "fused_refine" not in res.stats
+    assert np.bincount(res.task_to_proc, minlength=pa.n).max() == 2

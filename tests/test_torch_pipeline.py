@@ -4,9 +4,10 @@ scenarios of the registry.  Every problem is built once through the
 reference's scenario registry (numpy, from a seed), carried over with
 ``repro_torch.compat`` and run through both packages: ``task_to_proc``
 must be equal bit for bit, the score within ``rtol=1e-4``, statuses and
-signatures equal.  Also: what the slice refuses (non-flat hierarchy,
-device partitioner, the card when there is none) and the rule that the
-port imports neither ``jax`` nor the reference package.
+signatures equal; a node and a depth-3 request serve the reference's
+answer.  Also: what the slice refuses (an unknown partition backend,
+the card when there is none) and the rule that the port imports
+neither ``jax`` nor the reference package.
 """
 
 import ast
@@ -191,14 +192,21 @@ def test_registry_is_the_full_cross_product():
 
 
 @pytest.mark.parametrize("hier", ["node", "depth3"])
-def test_non_flat_hierarchy_raises_naming_the_later_slice(hier):
+def test_non_flat_hierarchy_serves_the_reference_answer(hier):
+    ref = RSV.get_scenario(f"minighost-xk7_sparse-{hier}-wh",
+                           scale=256).request()
+    want = RPipeline(ref.config).map(ref.graph, ref.alloc)
     req = get_scenario(f"minighost-xk7_sparse-{hier}-wh", scale=256,
                        score_backend="torch", device="cpu").request()
     assert not req.config.hierarchy.is_flat
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MappingPipeline(req.config).map(req.graph, req.alloc)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MappingService().map(req)
+    got = MappingPipeline(req.config).map(req.graph, req.alloc)
+    resp = MappingService().map(req)
+    assert resp.status == "cold"
+    for res in (got, resp.result):
+        assert np.array_equal(res.task_to_proc, want.task_to_proc)
+        assert res.rotation == want.rotation
+        assert res.stats["refine_history"] == want.stats["refine_history"]
+        assert res.stats["hierarchy"] == hier
 
 
 def test_device_partitioner_and_fused_modes():
