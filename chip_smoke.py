@@ -57,6 +57,30 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    contributions, and K1 on one stack whole, in halves and with the host
    evaluator's group bound, bit for bit.  Times sit beside the flat
    request of the same scenario from ``serve``.
+   ``resilience`` — the default-config service answers
+   ``minighost-xk7_sparse-flat-wh`` at ``--scale`` tasks under injected
+   faults (``faults.isolated()``, a fresh service over cleared pipelines a
+   case).  On the card the ladder never leaves the card's kernels (full,
+   then unfused): K1 failing once is served by ``unfused``, K1 or the
+   device partitioner failing on both rungs raises to the caller with two
+   failed rungs and nothing cached, and a first rung sleeping past
+   ``deadline_s`` is served by ``unfused`` with one deadline miss; every
+   fault fires as planned and every answer equals phase ``serve``'s
+   healthy one bit for bit.  Before the cases one healthy cold
+   request runs under ``obs.torch_profile`` (``REPRO_TORCH_PROFILE`` at
+   ``build/chip_smoke/profile``), whose device trace must name the
+   mapscore kernel; a ``JsonlSink`` logs the phase, which must read back
+   with the degraded and the failed rungs, and its Chrome trace and the Prometheus text
+   must parse.
+   ``meshmap`` — ``select_mapping`` with its defaults (K1, the device
+   partitioner, ``cuda``) and on the all-host path for the logical meshes
+   of ``benchmarks/mapping_tpu.py`` (aligned, four mismatched shapes,
+   three sparse allocations, two pods): equal winners bit for bit, never
+   worse than the enumeration; a repeat build through a service is all
+   warm; ``make_topology_mesh(multi_pod=True)`` lays the ranks out in the
+   winner's order, and the collective term of both layouts is printed.
+   Every service of the mapping phases (outside the injected cases) must
+   show no degraded answer, failed or skipped rung or open breaker.
 4. ``attention`` — the flash-attention kernel against its plain-torch
    version on the card: MHA, GQA 4:1 and MQA, ragged S (80; 4000), head
    dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
@@ -1346,6 +1370,18 @@ def check_answer(name, req, res) -> None:
     check(np.isfinite(res.score), f"{name}: score {res.score}")
 
 
+def check_service(svc, what: str) -> None:
+    """No hidden degradation: a service outside its injected cases shows
+    no degraded answer, no failed or skipped rung and no open breaker."""
+    st = svc.stats()
+    bad = {k: st[k] for k in ("degraded", "rung_failures", "breaker_skips",
+                              "deadline_misses", "deadline_skips") if st[k]}
+    check(not bad and not st["rungs"],
+          f"{what}: the service degraded: {bad} {st['rungs']}")
+    check(all(b["state"] == "closed" for b in st["breakers"].values()),
+          f"{what}: breakers {st['breakers']}")
+
+
 def serve_phase(problems, weighted, scale, rotations) -> dict:
     """Cold requests of the four scenarios and a weighted one through a
     ``MappingService`` with the default config (device partitioner, the
@@ -1454,6 +1490,8 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
     check(ops.launch_count == launches, "a warm answer launched the kernel")
     stats = svc.stats()
     check(stats["cold"] == len(names), f"service stats {stats}")
+    answers = {name: (req, svc.results.get(req.signature(), count=False))
+               for name, req in zip(SCENARIOS, reqs)}
 
     # the staged device path: partition, then score, same answers
     for name, req, rec in zip(SCENARIOS, reqs, served):
@@ -1465,15 +1503,18 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
         res = resp.result
         check(resp.status == "cold" and not res.stats.get("fused"),
               f"{name}: fused='off' answer {resp.status}, {res.stats}")
+        check_answer(name + " fused='off'", req, res)
         check(ops.launch_count == k1 + 1, f"{name}: staged K1 launches")
         fused = svc.results.get(req.signature(), count=False)
         check(np.array_equal(res.task_to_proc, fused.task_to_proc)
               and res.rotation == fused.rotation,
               f"{name}: the staged answer differs from the fused one")
         rec["staged"] = {"cold_s": resp.latency_s, **res.stats["timings"]}
+    check_service(svc, "serve")
     return {"requests": served, "kernel_launches": launches,
             "segscan_launches": seg_launches,
-            "service": {k: stats[k] for k in ("cold", "warm", "coalesced")}}
+            "service": {k: stats[k] for k in ("cold", "warm", "coalesced")},
+            "_answers": answers}
 
 
 # ---------------------------------------------------------------------------
@@ -1892,10 +1933,379 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
             same_refinement(name, "staged K1", got, want)
             if rec["fused_refine"]:
                 rec["staged"] = dict(want.stats["timings"])
+    check_service(svc, "hier")
     return {"requests": served, "kernel_launches": launches,
             "segscan_launches": seg_launches, "refine_traps": traps,
             "k1_split": k1_split, "k1_proposals": k1_proposals,
             "node_split": split}
+
+
+# ---------------------------------------------------------------------------
+# phase resilience: the degradation ladder under injected faults
+# ---------------------------------------------------------------------------
+
+RESILIENCE_SCENARIO = SCENARIOS[0]       # minighost-xk7_sparse-flat-wh
+# (case, faults as (site, kind, options), service options, serving rung
+#  or None where the error goes to the caller, failed rungs).  On the
+# card the default config's ladder is full (the fused sweep), unfused:
+# no rung leaves the card's kernels.  The fused sweep launches K1 and
+# runs the device partitioner itself, so it passes ``kernel.mapscore``
+# and ``partition.torch`` as the staged rung does; a fault that fails
+# both rungs reaches the caller.  The deadline case's first rung sleeps
+# past the deadline and the last rung, which has none, serves.
+RESILIENCE_CASES = (
+    ("k1_fails_once", (("kernel.mapscore", "error", {"count": 1}),), {},
+     "unfused", 1),
+    ("k1_fails_twice", (("kernel.mapscore", "error", {"count": 2}),), {},
+     None, 2),
+    ("device_partitioner_fails",
+     (("partition.torch", "error", {"count": 2}),), {}, None, 2),
+    ("slow_past_deadline",
+     (("serve.compute", "slow", {"delay": 1.0, "count": 1}),),
+     {"deadline_s": 0.5}, "unfused", 1),
+)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke")
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count (zeroed first with
+    ``reset``)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mapscore import ops as ms_ops
+    from repro_torch.kernels.segscan import ops as seg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    mods = {"mapscore": ms_ops, "flash_attention": fa_ops, "ssd": ssd_ops,
+            "segscan": seg_ops}
+    if reset:
+        for m in mods.values():
+            m.launch_count = 0
+    return {k: m.launch_count for k, m in mods.items()}
+
+
+def rung_walk(trace_id) -> list:
+    """The ``serve.rung`` spans of one request: each rung considered,
+    with its seconds, what happened there, and the seconds of the
+    pipeline pass it started (an abandoned rung's pass runs on after
+    the rung is given up)."""
+    from repro_torch import obs
+    spans = obs.finished(trace_id)
+    walk = []
+    for sp in spans:
+        if sp.name != "serve.rung":
+            continue
+        runs = [c.duration_s for c in spans if c.name == "pipeline.map"
+                and c.parent_id == sp.span_id]
+        walk.append({"rung": sp.attrs["rung"], "s": sp.duration_s,
+                     "pipeline_s": runs[0] if runs else None,
+                     **{k: sp.attrs[k] for k in ("skipped", "error",
+                                                 "degraded")
+                        if k in sp.attrs}})
+    return walk
+
+
+def fresh_service(**options):
+    """A new service over cleared pipelines: no case reads another's
+    state."""
+    from repro_torch.mapping import pipeline
+    from repro_torch.serve import MappingService
+    with pipeline._SHARED_LOCK:
+        pipeline._SHARED_PIPELINES.clear()
+    return MappingService(**options)
+
+
+def profiled_request(req, healthy) -> dict:
+    """One cold healthy request under ``obs.torch_profile``: the device
+    trace it writes must name the mapscore kernel."""
+    import glob
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.kernels.mapscore import ops
+    outdir = os.path.join(OUT_DIR, "profile")
+    for old in glob.glob(os.path.join(outdir, "*.json")):
+        os.remove(old)
+    svc = fresh_service()
+    os.environ["REPRO_TORCH_PROFILE"] = outdir
+    try:
+        k1 = ops.launch_count
+        with obs.torch_profile("cold-request") as armed:
+            resp = svc.map(req)
+            torch.cuda.synchronize()
+    finally:
+        del os.environ["REPRO_TORCH_PROFILE"]
+    check(armed == outdir, "torch_profile did not arm")
+    check_answer("profiled request", req, resp.result)
+    check(resp.status == "cold" and ops.launch_count == k1 + 1,
+          f"profiled request: {resp.status}, "
+          f"{ops.launch_count - k1} K1 launches")
+    check(np.array_equal(resp.result.task_to_proc, healthy.task_to_proc),
+          "profiled request: answer differs from phase serve's")
+    check_service(svc, "profiled request")
+    # the request's root span is a child of the profile's span
+    [sp] = [s for s in obs.finished(resp.trace_id)
+            if s.name == "torch.profile"]
+    with open(sp.attrs["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"})
+    k1_names = [k for k in kernels if "mapscore" in k]
+    check(k1_names, f"the device trace names no mapscore kernel: "
+                    f"{kernels[:20]}")
+    return {"path": os.path.relpath(sp.attrs["path"]),
+            "cold_s": resp.latency_s, "events": len(events),
+            "device_kernels": len(kernels), "mapscore_kernels": k1_names}
+
+
+def resilience_phase(served) -> dict:
+    """The default-config service answers ``RESILIENCE_SCENARIO`` under
+    each of ``RESILIENCE_CASES`` inside ``faults.isolated()``: every
+    planned fault fires as planned, the expected rung serves with an
+    answer equal to phase ``serve``'s healthy one bit for bit, or the
+    error reaches the caller where no card rung is left.  Before the
+    cases, one cold healthy request under ``obs.torch_profile``; a
+    ``JsonlSink`` logs the phase's spans, which must read back with the
+    degraded and the failed rungs, and the phase's Chrome trace and the
+    process's Prometheus text must parse."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import faults, obs
+    req, healthy = served
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log = os.path.join(OUT_DIR, "resilience.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    sink = obs.JsonlSink(log)
+    obs.add_sink(sink)
+    kernel_counts(reset=True)
+    cases, trace_ids = [], []
+    try:
+        profiled = profiled_request(req, healthy)
+        for case, specs, options, rung, failed in RESILIENCE_CASES:
+            svc = fresh_service(**options)
+            error = None
+            with faults.isolated():
+                installed = [faults.install(site, kind, **opts)
+                             for site, kind, opts in specs]
+                t0 = time.perf_counter()
+                with obs.span("chip_smoke.case", case=case) as case_span:
+                    try:
+                        resp = svc.map(req)
+                    except faults.InjectedFault as e:
+                        error = e
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                fired = [sp.fired for sp in installed]
+            # an abandoned rung's worker finishes off-thread: wait for it
+            # so that no later case meets its device work or its fires
+            t0 = time.perf_counter()
+            for th in threading.enumerate():
+                if th.name == "mapping-rung":
+                    th.join(120)
+                    check(not th.is_alive(), f"{case}: worker still runs")
+            torch.cuda.synchronize()
+            waited_s = time.perf_counter() - t0
+            st = svc.stats()
+            planned = [opts["count"] for _, _, opts in specs]
+            check(fired == planned, f"{case}: fired {fired}, planned "
+                                    f"{planned}")
+            if rung is None:
+                check(error is not None,
+                      f"{case}: served, expected the error")
+                check(st["cold"] == st["degraded"] == 0
+                      and len(svc.results) == 0
+                      and st["rung_failures"] == failed,
+                      f"{case}: service stats {st}")
+            else:
+                check(error is None, f"{case}: raised {error!r}")
+                res = resp.result
+                check(resp.status == "cold"
+                      and res.stats.get("degraded") == rung,
+                      f"{case}: served by {res.stats.get('degraded')}, "
+                      f"expected {rung}")
+                check(np.array_equal(res.task_to_proc,
+                                     healthy.task_to_proc),
+                      f"{case}: the {rung} answer differs from the "
+                      "healthy one")
+                check(st["degraded"] == 1 and st["rungs"] == {rung: 1}
+                      and st["rung_failures"] == failed,
+                      f"{case}: service stats {st}")
+            if "deadline_s" in options:
+                check(st["deadline_misses"] == 1,
+                      f"{case}: deadline misses {st['deadline_misses']}")
+            walk = rung_walk(case_span.trace_id)
+            trace_ids.append(case_span.trace_id)
+            cases.append({"case": case, "faults": [list(x) for x in specs],
+                          "fired": fired, "rung": rung,
+                          "error": None if error is None else repr(error),
+                          "cold_s": seconds, "walk": walk,
+                          "worker_wait_s": waited_s,
+                          **{k: st[k] for k in (
+                              "rung_failures", "deadline_misses",
+                              "deadline_skips", "breaker_skips")}})
+    finally:
+        obs.remove_sink(sink)
+        sink.close()
+    counts = kernel_counts()
+    launches = counts.pop("mapscore")
+    check(not any(counts.values()), f"resilience launched {counts}")
+
+    # -- the exporters over the phase ----------------------------------
+    logged = obs.read_jsonl(log)
+    rungs = [s["attrs"] for s in logged if s["name"] == "serve.rung"]
+    degraded = sorted(a["degraded"] for a in rungs if "degraded" in a)
+    check(degraded == sorted(c[3] for c in RESILIENCE_CASES if c[3]),
+          f"the span log's degraded rungs: {degraded}")
+    failed = sum("error" in a for a in rungs)
+    check(failed == sum(c[4] for c in RESILIENCE_CASES),
+          f"the span log's failed rungs: {failed}")
+    spans = [sp for sp in obs.finished() if sp.trace_id in set(trace_ids)]
+    chrome = os.path.join(OUT_DIR, "resilience.trace.json")
+    obs.write_chrome_trace(chrome, spans)
+    with open(chrome) as f:
+        doc = json.load(f)
+    check(len(doc["traceEvents"]) == len(spans) > 0,
+          "the Chrome trace is empty")
+    prom = obs.prometheus_text()
+    samples = [ln for ln in prom.splitlines() if not ln.startswith("#")]
+    for ln in samples:
+        float(ln.rsplit(" ", 1)[1])
+    check(samples and "repro_serve_degraded_total" in prom,
+          "the Prometheus text has no degraded counter")
+    return {"scenario": RESILIENCE_SCENARIO, "cases": cases,
+            "profiled_request": profiled, "kernel_launches": launches,
+            "exporters": {"jsonl_spans": len(logged),
+                          "chrome_events": len(doc["traceEvents"]),
+                          "prometheus_samples": len(samples)}}
+
+
+# ---------------------------------------------------------------------------
+# phase meshmap: select_mapping and the topology mesh
+# ---------------------------------------------------------------------------
+
+def mesh_scenarios():
+    """The logical meshes of ``benchmarks/mapping_tpu.py``: (tag, graph,
+    allocation, axis bytes)."""
+    from repro_torch.core import (Allocation, logical_mesh_graph,
+                                  make_machine, sfc_allocation,
+                                  tpu_v5e_multipod, tpu_v5e_pod)
+    from repro_torch.meshmap import DEFAULT_AXIS_BYTES as B
+    m1 = tpu_v5e_pod(16)
+    a1 = Allocation(m1, m1.all_coords())
+    dm = (B["data"], B["model"])
+    pdm = (B["pod"],) + dm
+    out = [("aligned_16x16", (16, 16), dm, a1),
+           ("mismatch_64x4", (64, 4), dm, a1),
+           ("mismatch_4x64", (4, 64), dm, a1),
+           ("mismatch_8x32", (8, 32), dm, a1),
+           ("mismatch_2x8x16", (2, 8, 16), pdm, a1)]
+    ms = make_machine((32, 32), wrap=True, bw=50.0, name="supertorus")
+    for seed in (0, 1, 2):
+        out.append((f"sparse_16x16_seed{seed}", (16, 16), dm,
+                    sfc_allocation(ms, 256, nfragments=4, seed=seed)))
+    m2 = tpu_v5e_multipod(2, 16)
+    out.append(("two_pod_2x16x16", (2, 16, 16), pdm,
+                Allocation(m2, m2.all_coords())))
+    return [(tag, logical_mesh_graph(shape, w, None), alloc, w)
+            for tag, shape, w, alloc in out]
+
+
+def meshmap_phase() -> dict:
+    """``select_mapping`` with its defaults (K1, the device partitioner,
+    ``cuda``) against the all-host path on every scenario of
+    ``mesh_scenarios``: equal winners bit for bit, never worse than the
+    enumeration.  Then a repeat build through a service (all warm), and
+    ``make_topology_mesh(multi_pod=True)``, whose ranks must be the
+    winner's order, with the collective term of the mapped and the
+    default layout."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (Allocation, identity_mapping,
+                                  logical_mesh_graph)
+    from repro_torch.kernels.mapscore import ops
+    from repro_torch.launch.mesh import make_topology_mesh
+    from repro_torch.meshmap import (DEFAULT_AXIS_BYTES, collective_term,
+                                     compare_mappings, device_coords,
+                                     machine_for, select_mapping,
+                                     split_axis_bytes)
+    host = dict(score_backend="numpy", partition_backend="numpy")
+    kernel_counts(reset=True)
+    rows = []
+    for tag, g, a, w in mesh_scenarios():
+        k1 = ops.launch_count
+        t0 = time.perf_counter()
+        best, ours, base = select_mapping(g, a, w)
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - t0
+        launches = ops.launch_count - k1
+        t0 = time.perf_counter()
+        hbest, hours, _ = select_mapping(g, a, w, **host)
+        host_s = time.perf_counter() - t0
+        check("degraded" not in best.stats, f"{tag}: degraded")
+        check(np.array_equal(best.task_to_proc, hbest.task_to_proc)
+              and best.rotation == hbest.rotation,
+              f"{tag}: the K1 winner differs from the all-host one")
+        check(launches > 0, f"{tag}: K1 never launched")
+        lat = ours["latency_max"] / max(base["latency_max"], 1e-9)
+        wh = ours["weighted_hops"] / max(base["weighted_hops"], 1e-9)
+        check(lat <= 1 + 1e-9, f"{tag}: lat_ratio {lat}")
+        rows.append({"scenario": tag, "tasks": int(g.n),
+                     "lat_ratio": lat, "wh_ratio": wh, "device_s": device_s,
+                     "host_s": host_s, "k1_launches": launches})
+    search_launches = ops.launch_count
+
+    # -- a repeat mesh build through the service ------------------------
+    shape, axes = (2, 16, 16), ("pod", "data", "model")
+    ab = [DEFAULT_AXIS_BYTES[x] for x in axes]
+    m2 = machine_for(pods=2, side=16)
+    n = int(np.prod(shape))
+    g = logical_mesh_graph(shape, tuple(ab), axes)
+    a = Allocation(m2, device_coords(range(n), m2).astype(int))
+    svc = fresh_service()
+    t0 = time.perf_counter()
+    best, _, _ = select_mapping(g, a, ab, rotations=8, service=svc)
+    cold_s = time.perf_counter() - t0
+    first = svc.stats()
+    t0 = time.perf_counter()
+    again, _, _ = select_mapping(g, a, ab, rotations=8, service=svc)
+    warm_s = time.perf_counter() - t0
+    second = svc.stats()
+    check(second["warm"] - first["warm"] == first["cold"] == 4
+          and second["cold"] == first["cold"],
+          f"the repeat build was not all warm: {first} then {second}")
+    check(np.array_equal(best.task_to_proc, again.task_to_proc),
+          "the repeat build's winner differs")
+    check_service(svc, "meshmap")
+
+    # -- the topology mesh: the winner's order -----------------------------
+    t0 = time.perf_counter()
+    layout, report = make_topology_mesh(multi_pod=True, return_report=True)
+    mesh_s = time.perf_counter() - t0
+    check(layout.ranks.shape == shape and layout.axis_names == axes
+          and np.array_equal(layout.ranks, best.task_to_proc.reshape(shape)),
+          "make_topology_mesh's ranks are not the winner's order")
+    step_bytes = split_axis_bytes(1e9, shape, ab)
+    terms = compare_mappings(a, shape, step_bytes,
+                             {"mapped": best,
+                              "default": identity_mapping(g, a)})
+    check(terms["mapped"] <= terms["default"] * (1 + 1e-9),
+          f"collective term {terms}")
+    check(np.isclose(collective_term(a, shape, best, step_bytes),
+                     terms["mapped"], rtol=1e-12), "collective_term")
+    counts = kernel_counts()
+    check(not any(v for k, v in counts.items() if k != "mapscore"),
+          f"meshmap launched {counts}")
+    return {"scenarios": rows, "kernel_launches": counts["mapscore"],
+            "search_launches": search_launches,
+            "service": {"cold_s": cold_s, "warm_s": warm_s,
+                        "cold": first["cold"],
+                        "warm_repeat": second["warm"] - first["warm"]},
+            "topology_mesh": {"shape": list(shape), "s": mesh_s,
+                              "lat_ratio": report["mapped"]["latency_max"]
+                              / report["default"]["latency_max"],
+                              "collective_s": terms,
+                              "step_bytes": step_bytes}}
 
 
 def mapping_phases(scale, rotations, profile) -> dict:
@@ -1948,21 +2358,36 @@ def mapping_phases(scale, rotations, profile) -> dict:
 
     # -- phase 4: serve -----------------------------------------------------
     serve = serve_phase(problems, weighted, scale, rotations)
-    emit("serve", scale=scale, rotations=rotations, **serve)
+    emit("serve", scale=scale, rotations=rotations,
+         **{k: v for k, v in serve.items() if k != "_answers"})
 
     # -- phase hier: node and depth-3 requests -------------------------------
     hier = hier_phase(serve, problems, scale, rotations)
     emit("hier", scale=scale, rotations=rotations, **hier)
+
+    # -- phase resilience: the degradation ladder under injected faults ----
+    res = resilience_phase(serve["_answers"][RESILIENCE_SCENARIO])
+    emit("resilience", scale=scale, rotations=rotations, **res)
+
+    # -- phase meshmap: select_mapping and the topology mesh ----------------
+    mesh = meshmap_phase()
+    emit("meshmap", **mesh)
     if profile:
         profile_phase(problems[SCENARIOS[1].rsplit("-", 1)[0]], scale,
                       rotations)
     return {"small": small, "full": full, "partition": part,
-            "serve": serve, "hier": hier}
+            "serve": serve, "hier": hier, "resilience": res,
+            "meshmap": mesh}
 
 
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+# the paths that launch K1, each read with the counts set to 0 just
+# before it
+K1_PATHS = ("serve", "hier", "resilience", "meshmap")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2044,11 +2469,9 @@ def main(argv=None) -> int:
         "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
         "replaces": "src/repro/kernels/mapscore/kernel.py:204",
-        "launches": (mapping["serve"]["kernel_launches"]
-                     + mapping["hier"]["kernel_launches"]),
-        "launches_by_path": {
-            "serve": mapping["serve"]["kernel_launches"],
-            "hier": mapping["hier"]["kernel_launches"]},
+        "launches": sum(mapping[p]["kernel_launches"] for p in K1_PATHS),
+        "launches_by_path": {p: mapping[p]["kernel_launches"]
+                             for p in K1_PATHS},
         "max_abs_err": max(r["max_abs_err"] for r in small + full),
         "ms": lead["ms_traffic"], "plain_ms": lead["plain_ms_traffic"],
         "bound_ms": lead["bound_ms_traffic"],

@@ -178,7 +178,10 @@ def run(inp: SweepInputs, levels: int | None = None) -> torch.Tensor:
     """The whole batched partition on the inputs' device: (nb, n) int64
     part numbers in original point order.  ``levels`` overrides the
     level count of the Multi-Jagged sweep (a larger count must change
-    nothing; the tests check that)."""
+    nothing; the tests check that).  Every sweep passes the
+    ``partition.torch`` fault site, staged or inside the fused sweep."""
+    from repro_torch import faults
+    faults.fire("partition.torch")
     nb, n = inp.shape
     if inp.nparts <= 1 or n == 0 or nb == 0:
         return torch.zeros((nb, n), dtype=_I64, device=inp.cols.device)
@@ -374,10 +377,9 @@ def partition(
     """:func:`upload` then :func:`run` as one traced, fault-injectable
     span (``partition.torch``): the (B, n) int64 part numbers, left on
     ``device``."""
-    from repro_torch import faults, obs
+    from repro_torch import obs
     with obs.span("partition.torch", points=len(coords), nparts=int(nparts),
                   batch=len(dim_orders), device=str(device)):
-        faults.fire("partition.torch")
         return run(upload(coords, nparts, sfc, dim_orders=dim_orders,
                           weights=weights, longest_dim=longest_dim,
                           uneven_prime=uneven_prime, device=device))

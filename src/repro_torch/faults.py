@@ -15,7 +15,7 @@ site                where it fires
 ``score.numpy``     every scoring call resolved to the numpy evaluator
 ``score.torch``     every scoring call resolved to the torch evaluator
 ``score.hopper``    every scoring call resolved to the CUDA kernel
-``partition.torch`` the device partition sweep (single and batched)
+``partition.torch`` every device partition sweep (staged or fused)
 ``fused``           entry of the one-program rotation sweep
 ``kernel.mapscore`` inside the kernel wrapper, before the launch
 ``serve.compute``   the service's cold path, before the pipeline runs

@@ -181,8 +181,11 @@ def _params(dims, wrap, core_dims, traffic, nb, ntasks, ncols, ne,
 
 def _scores(coord_stack, edges, w, inv_bw, *, dims, wrap, core_dims,
             traffic, group_elems) -> torch.Tensor:
-    """Packed results (see :func:`unpack`) on the inputs' device."""
+    """Packed results (see :func:`unpack`) on the inputs' device.  Every
+    call passes the ``kernel.mapscore`` fault site first, the staged
+    scorer's and the fused sweep's alike."""
     global launch_count
+    faults.fire("kernel.mapscore")
     dims = tuple(int(d) for d in dims)
     wrap = tuple(bool(x) for x in wrap)
     nd = len(dims) - core_dims
@@ -300,11 +303,6 @@ def evaluate_candidates_hopper(machine: Machine, task_edges: np.ndarray,
     out = empty_scores(nb, traffic)
     if ne == 0 or nb == 0:
         return out
-    # marker span at the fault hook: an injected kernel fault lands in
-    # the trace error-annotated exactly where a real one would; the
-    # enclosing score.hopper span carries the wall-clock
-    with obs.span("kernel.mapscore", candidates=int(nb), edges=int(ne)):
-        faults.fire("kernel.mapscore")
     cs, edges, w, inv_bw = scoring_inputs(
         machine, task_edges, edge_weights, coord_stack, traffic, device)
     res = _scores(cs, edges, w, inv_bw, dims=machine.dims, wrap=machine.wrap,

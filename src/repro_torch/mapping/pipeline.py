@@ -177,6 +177,17 @@ def _unique_perms(perms, d: int) -> tuple[np.ndarray, np.ndarray]:
             np.array([of[p] for p in rows], dtype=np.int64))
 
 
+def fused_eligible(cfg: PipelineConfig) -> bool:
+    """Whether ``cfg`` takes the one-pass device sweep: partition +
+    match + score + select on the device, when both stages run there and
+    the sweep is the batched vectorized one (the fused gathers mirror it
+    exactly).  A pure function of the config — the pipeline asks it
+    after resolving the backends, the degradation ladder without."""
+    return (cfg.fused != "off" and cfg.backend == "vectorized"
+            and cfg.partition_backend == "torch" and cfg.sweep == "batched"
+            and cfg.score_backend in ("torch", "hopper"))
+
+
 def rotation_of(c) -> tuple:
     """A candidate's ``MappingResult.rotation``."""
     return (tuple(c.task_perm or ()), tuple(c.proc_perm or ()))
@@ -250,13 +261,8 @@ class MappingPipeline:
         if cfg.fused not in ("auto", "off"):
             raise ValueError(f"unknown fused mode {cfg.fused!r}; "
                              "options: 'auto', 'off'")
-        # the one-pass device sweep: partition + match + score + select
-        # on the device, when both stages run there and the sweep is the
-        # batched vectorized one (the fused gathers mirror it exactly)
         self._fused = None
-        if (cfg.fused != "off" and self.order_backend == "torch"
-                and cfg.sweep == "batched"
-                and self.search.backend in ("torch", "hopper")):
+        if fused_eligible(cfg):
             from repro_torch.mapping.fused import FusedSweep
             self._fused = FusedSweep(self, self.search.backend)
 

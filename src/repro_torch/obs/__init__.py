@@ -1,6 +1,6 @@
 """repro_torch.obs — unified tracing + metrics for the whole mapping stack.
 
-One dependency-free observability substrate, two parts:
+One dependency-free observability substrate, three parts:
 
 - :mod:`repro_torch.obs.trace` — request-scoped SPANS: thread-safe context
   managers over monotonic clocks, nested parent/child structure, one
@@ -10,15 +10,18 @@ One dependency-free observability substrate, two parts:
   bounded named counters/gauges/histograms plus adapters absorbing the
   stack's scattered counters (compile caches, LRUs, services,
   breakers, faults) into one :func:`snapshot`.
+- :mod:`repro_torch.obs.export` — JSONL span logs (``REPRO_TRACE=path``),
+  Chrome trace-event JSON for Perfetto, Prometheus text exposition,
+  and a ``torch.profiler`` bridge (``REPRO_TORCH_PROFILE=dir``).
 
-The exporters (JSONL span logs, Chrome trace-event JSON, Prometheus
-text) are not part of this package yet; spans stay in the in-process
-ring buffer (:func:`finished`) and sinks attach through :func:`add_sink`.
-
-This package imports only the stdlib; the instrumented modules import
-it, never the reverse, so it is safe at the bottom of every layer.
+This package imports only the stdlib (the profiler bridge imports torch
+when armed); the instrumented modules import it, never the reverse, so
+it is safe at the bottom of every layer.
 """
 
+from .export import (JsonlSink, chrome_trace, install_env_sink,
+                     prometheus_text, read_jsonl, torch_profile,
+                     write_chrome_trace)
 from .metrics import (REGISTRY, counter, gauge, instrument_compile_cache,
                       observe, register_cache, register_object,
                       register_provider, snapshot, span_rollup)
@@ -26,10 +29,15 @@ from .trace import (TRACER, Span, Tracer, add_sink, annotate, attach,
                     current_span, finished, format_tree, remove_sink,
                     reset, span, span_tree)
 
+# arm the process-wide JSONL event log when REPRO_TRACE names a path
+_ENV_SINK = install_env_sink()
+
 __all__ = [
-    "REGISTRY", "Span", "TRACER", "Tracer", "add_sink", "annotate",
-    "attach", "counter", "current_span", "finished", "format_tree",
-    "gauge", "instrument_compile_cache", "observe", "register_cache",
-    "register_object", "register_provider", "remove_sink", "reset",
-    "snapshot", "span", "span_rollup", "span_tree",
+    "JsonlSink", "REGISTRY", "Span", "TRACER", "Tracer", "add_sink",
+    "annotate", "attach", "chrome_trace", "counter", "current_span",
+    "finished", "format_tree", "gauge", "install_env_sink",
+    "instrument_compile_cache", "observe", "prometheus_text",
+    "read_jsonl", "register_cache", "register_object",
+    "register_provider", "remove_sink", "reset", "snapshot", "span",
+    "span_rollup", "span_tree", "torch_profile", "write_chrome_trace",
 ]

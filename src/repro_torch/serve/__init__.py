@@ -7,19 +7,19 @@
 - :mod:`repro_torch.serve.scenarios` — the scenario registry: the full
   workload x allocation x hierarchy x objective cross-product that
   tests and the server draw problems from.
-
+- :mod:`repro_torch.serve.resilience` — circuit breakers and the
+  graceful-degradation ladder the service walks when a resolved rung
+  fails at run time (fault injection lives in :mod:`repro_torch.faults`).
 - :mod:`repro_torch.serve.decode` — the token-decode model server
   (:class:`ServeEngine`, prompt ingestion + greedy decode over a KV or
   SSM cache; the dense, ssm and hybrid families).
-
-The degradation ladder and circuit breakers of the reference package are
-not part of this package yet: a cold request is one pipeline pass.
 """
 
 from .cache import LRUCache
 from .engine import (OBJECTIVES, MappingRequest, MappingResponse,
-                     MappingService, ServiceOverloaded, default_service,
-                     make_request)
+                     MappingService, default_service, make_request)
+from .resilience import (BreakerBoard, CircuitBreaker, DeadlineExceeded,
+                         ServiceOverloaded, degradation_ladder, rung_key)
 from .scenarios import (ALLOCATIONS, HIERARCHIES, OBJECTIVE_KEYS,
                         WORKLOADS, Scenario, all_scenarios, get_scenario,
                         scenario_names)
@@ -35,9 +35,10 @@ def __getattr__(name):
 
 
 __all__ = [
-    "ALLOCATIONS", "HIERARCHIES", "LRUCache", "MappingRequest",
-    "MappingResponse", "MappingService", "OBJECTIVES", "OBJECTIVE_KEYS",
-    "Scenario", "ServeEngine", "ServiceOverloaded", "WORKLOADS",
-    "all_scenarios",
-    "default_service", "get_scenario", "make_request", "scenario_names",
+    "ALLOCATIONS", "BreakerBoard", "CircuitBreaker", "DeadlineExceeded",
+    "HIERARCHIES", "LRUCache", "MappingRequest", "MappingResponse",
+    "MappingService", "OBJECTIVES", "OBJECTIVE_KEYS", "Scenario",
+    "ServeEngine", "ServiceOverloaded", "WORKLOADS", "all_scenarios",
+    "default_service", "degradation_ladder", "get_scenario",
+    "make_request", "rung_key", "scenario_names",
 ]

@@ -23,13 +23,23 @@ Response schema: ``result`` (the :class:`repro_torch.core.MappingResult`
 — treat as read-only, it is shared with the cache), ``signature``,
 ``status`` (cold/warm/coalesced) and ``latency_s``.
 
-The cold path is ONE pipeline pass and an error propagates to the
-caller: the degradation ladder, circuit breakers and deadlines of the
-reference's ``serve/resilience.py`` are not part of this package yet,
-so a failing kernel or device is never papered over by a slower rung.
-A bounded admission queue sheds overload (:class:`ServiceOverloaded`).
-Errors never enter the result LRU, and a failed in-flight computation
-is recomputed by its waiters rather than replayed to them.
+The cold path is RESILIENT (:mod:`repro_torch.serve.resilience`): the
+request's device and its first rung's score and partition backends are
+resolved before anything runs — an unreachable device, an unknown
+backend, ``"hopper"`` on a CPU device or a kernel library that does not
+build raises to the caller, and no rung is counted.  A rung that then
+fails at run time (a failed launch, a device OOM) or overruns the
+deadline walks the degradation ladder one rung down (fused -> unfused,
+hierarchy depth -> 2, refine rounds -> 0; on a CPU device also torch ->
+numpy scoring and partitioning) instead of surfacing the error.  On a
+CUDA device the ladder never leaves the card's kernels: the error of
+its last rung goes to the caller.  Per-rung circuit breakers skip
+known-bad backends outright, a bounded admission queue sheds overload
+(:class:`ServiceOverloaded`), and the served rung lands in
+``MappingResult.stats["degraded"]`` plus the service counters
+(:meth:`MappingService.stats`).  Errors never enter the result LRU, and
+a failed in-flight computation is recomputed by its waiters rather than
+replayed to them.
 """
 
 from __future__ import annotations
@@ -41,14 +51,13 @@ import time
 import numpy as np
 
 from repro_torch import faults, obs
-from repro_torch.core.signature import array_digest, mapping_signature
+from repro_torch.core.signature import (array_digest, config_signature,
+                                        mapping_signature)
 from repro_torch.mapping import PipelineConfig, shared_pipeline
 from repro_torch.serve.cache import LRUCache
-
-
-class ServiceOverloaded(RuntimeError):
-    """Admission control refused the request (queue full)."""
-
+from repro_torch.serve.resilience import (
+    BreakerBoard, DeadlineExceeded, ServiceOverloaded, degradation_ladder,
+    rung_key)
 
 # Short objective aliases accepted by make_request / the scenario
 # registry ("wh" is the paper's WeightedHops rotation-search objective;
@@ -157,28 +166,53 @@ class _InFlight:
 
 
 class MappingService:
-    """The request server: canonicalise, coalesce, cache, compute.
+    """The request server: canonicalise, coalesce, cache, compute —
+    and degrade gracefully instead of failing.
 
     capacity   : bound of the result LRU (entries, not bytes — a result
                  is one int array per request).
+    deadline_s : optional per-request compute deadline.  A NON-terminal
+                 ladder rung that overruns the remaining budget is
+                 abandoned (its worker finishes off-thread, and device
+                 work it has queued still runs ahead of the next rung's
+                 on the same stream) and the request drops a rung; the
+                 terminal rung always runs to completion so a slow
+                 stage degrades latency class, never availability.
     max_inflight / max_queue : bounded admission (None = unlimited,
                  the default).  At most ``max_inflight`` cold
                  computations run concurrently; up to ``max_queue``
                  more block waiting; beyond that requests are SHED with
                  :class:`ServiceOverloaded` (counted in ``stats()``).
                  Warm hits and coalesced waiters are never queued.
+    breaker_threshold / breaker_cooldown_s : per-rung circuit breakers
+                 (:class:`repro_torch.serve.resilience.CircuitBreaker`)
+                 keyed by RESOLVED backend combination and device type;
+                 an open breaker skips its rung without paying the
+                 failure latency.
+    clock      : injectable monotonic clock for the breakers (tests).
     """
 
     def __init__(self, capacity: int = 256, *,
+                 deadline_s: float | None = None,
                  max_inflight: int | None = None,
-                 max_queue: int = 8):
+                 max_queue: int = 8,
+                 breaker_threshold: int = 3,
+                 breaker_cooldown_s: float = 30.0,
+                 clock=time.monotonic):
         self.results = LRUCache(capacity)
+        self.deadline_s = deadline_s
         self.max_inflight = max_inflight
         self.max_queue = max_queue
         self._inflight: dict[str, _InFlight] = {}
         self._lock = threading.Lock()
         self._counts = {"cold": 0, "warm": 0, "coalesced": 0}
-        self._res_counts = {"shed": 0}
+        self._res_counts = {"degraded": 0, "shed": 0, "rung_failures": 0,
+                            "deadline_misses": 0, "deadline_skips": 0,
+                            "breaker_skips": 0}
+        self._rung_counts: dict[str, int] = {}
+        self._ladders: dict[tuple, list] = {}
+        self._breakers = BreakerBoard(breaker_threshold,
+                                      breaker_cooldown_s, clock)
         self._adm = threading.Condition(threading.Lock())
         self._active = 0
         self._queued = 0
@@ -189,17 +223,128 @@ class MappingService:
 
     def _compute(self, request: MappingRequest):
         """Run the pipeline for a cache miss (test seam: override to
-        instrument/block the cold path)."""
+        instrument/block the cold path).  Every ladder rung routes
+        through here, so overrides see degraded configs too."""
         faults.fire("serve.compute")
         pipe = shared_pipeline(request.config)
         return pipe.map(request.graph, request.alloc,
                         task_coords=request.task_coords,
                         task_weights=request.task_weights)
 
+    def _ladder_for(self, config: PipelineConfig) -> list:
+        """The config's ``(rung_name, config, breaker_key)`` ladder,
+        built once per config signature and device (the signature leaves
+        the device out, and a scorer on ``cpu`` and one on ``cuda`` are
+        different rungs).  Building it resolves every rung's backends on
+        its device (:func:`rung_key`), so an unreachable device, an
+        unknown backend, ``"hopper"`` on a CPU device or a kernel library
+        that does not build raises HERE, to the caller, before any rung
+        runs or is counted."""
+        key = (config_signature(config), str(config.device))
+        with self._lock:
+            ladder = self._ladders.get(key)
+        if ladder is None:
+            ladder = [(name, cfg, rung_key(cfg))
+                      for name, cfg in degradation_ladder(config)]
+            with self._lock:
+                ladder = self._ladders.setdefault(key, ladder)
+        return ladder
+
+    def _call_rung(self, request: MappingRequest,
+                   budget_s: float | None):
+        """One `_compute` attempt, bounded by ``budget_s`` when set.
+
+        The deadline run executes on a daemon worker so an overrun can
+        be abandoned; the worker's eventual result is discarded (the
+        ladder has already moved on).
+        """
+        if budget_s is None:
+            return self._compute(request)
+        box: dict = {}
+        # contextvars do not cross thread starts: re-parent the worker
+        # under the submitting thread's span so the rung's pipeline and
+        # backend spans stay inside the request's trace
+        parent = obs.current_span()
+
+        def worker():
+            try:
+                with obs.attach(parent):
+                    box["result"] = self._compute(request)
+            except BaseException as e:
+                box["error"] = e
+
+        th = threading.Thread(target=worker, daemon=True,
+                              name="mapping-rung")
+        th.start()
+        th.join(budget_s)
+        if th.is_alive():
+            raise DeadlineExceeded(
+                f"rung exceeded remaining deadline ({budget_s:.3f}s)")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
     def _execute(self, request: MappingRequest, t0: float):
-        """Serve a cache miss: one ``_compute`` call.  There is no
-        ladder below it — an error propagates."""
-        return self._compute(request)
+        """Walk the degradation ladder until a rung serves the request.
+
+        Rung failures trip the rung's breaker and drop one rung; open
+        breakers and an exhausted deadline budget skip rungs outright.
+        The terminal rung runs unconditionally (no breaker gate, no
+        deadline) — availability beats latency at the floor.  Only a
+        terminal-rung failure propagates to the caller, and so does a
+        config that does not resolve (:meth:`_ladder_for`).
+        """
+        ladder = self._ladder_for(request.config)
+        last_err = None
+        for i, (name, cfg, key) in enumerate(ladder):
+            breaker = self._breakers.get(key)
+            terminal = i == len(ladder) - 1
+            # one span per rung CONSIDERED: skips close instantly with
+            # a ``skipped`` attr, failures get ``error`` (span __exit__),
+            # so a degraded request's trace shows the whole walk
+            with obs.span("serve.rung", rung=name, index=i,
+                          backend_key=key, terminal=terminal) as sp:
+                if not terminal and not breaker.allow():
+                    self._bump("breaker_skips")
+                    obs.counter("serve.breaker_skips")
+                    sp.annotate(skipped="breaker")
+                    continue
+                budget = None
+                if self.deadline_s is not None and not terminal:
+                    budget = self.deadline_s - (time.perf_counter() - t0)
+                    if budget <= 0:
+                        self._bump("deadline_skips")
+                        obs.counter("serve.deadline_skips")
+                        sp.annotate(skipped="deadline")
+                        continue
+                req = request if i == 0 else dataclasses.replace(
+                    request, config=cfg, _signature=None)
+                try:
+                    result = self._call_rung(req, budget)
+                except Exception as e:
+                    last_err = e
+                    breaker.record_failure()
+                    self._bump("rung_failures")
+                    obs.counter("serve.rung_failures")
+                    sp.annotate(error=type(e).__name__)
+                    if isinstance(e, DeadlineExceeded):
+                        self._bump("deadline_misses")
+                        obs.counter("serve.deadline_misses")
+                    if terminal:
+                        raise
+                    continue
+                breaker.record_success()
+                if i > 0:
+                    result.stats["degraded"] = name
+                    self._bump("degraded")
+                    obs.counter("serve.degraded")
+                    sp.annotate(degraded=name)
+                    with self._lock:
+                        self._rung_counts[name] = \
+                            self._rung_counts.get(name, 0) + 1
+                return result
+        raise last_err if last_err is not None else RuntimeError(
+            "degradation ladder exhausted")  # pragma: no cover
 
     # -- bounded admission ------------------------------------------------
 
@@ -249,7 +394,8 @@ class MappingService:
 
         The whole walk runs inside one ``serve.request`` span: the root
         of the request's trace (``MappingResponse.trace_id``), covering
-        the pipeline and backend spans below it.
+        every ladder rung attempted and the pipeline/backend spans
+        below them.
         """
         with obs.span("serve.request") as root:
             resp = self._serve(request)
@@ -344,16 +490,25 @@ class MappingService:
         """Cumulative service counters + the result-cache stats.
 
         ``cold``/``warm``/``coalesced``/``requests``/``inflight``/
-        ``cache``, plus ``shed`` (requests refused by admission
-        control).
+        ``cache``, plus ``degraded`` (requests served below their full
+        rung) with the per-rung breakdown in ``rungs``,
+        ``rung_failures`` (individual rung attempts that failed),
+        ``deadline_misses`` (rungs abandoned at the deadline),
+        ``deadline_skips`` (rungs never tried — budget already gone),
+        ``breaker_skips`` (rungs skipped on an open breaker), ``shed``
+        (requests refused by admission control), and ``breakers`` (the
+        per-rung-key breaker states).
         """
         with self._lock:
             counts = dict(self._counts)
             res = dict(self._res_counts)
+            rungs = dict(self._rung_counts)
         return {**counts, **res,
                 "requests": (counts["cold"] + counts["warm"]
                              + counts["coalesced"]),
                 "inflight": len(self._inflight),
+                "rungs": rungs,
+                "breakers": self._breakers.states(),
                 "cache": self.results.stats()}
 
     def _respond(self, result, sig, status, t0) -> MappingResponse:
@@ -369,7 +524,9 @@ class MappingService:
 
 
 # Process-wide convenience instance for ad-hoc callers that want one
-# shared cache without owning a service object.
+# shared cache without owning a service object — e.g. pass it to
+# ``topology_mesh(..., service=default_service())`` so REPEAT mesh builds
+# in one process hit the same cache.
 _DEFAULT: MappingService | None = None
 _DEFAULT_LOCK = threading.Lock()
 

@@ -134,11 +134,42 @@ def test_concurrent_duplicates_share_one_computation():
                                              "cold"]
 
 
-def test_compute_error_propagates_no_ladder():
-    """A failing scorer is not papered over by a slower rung."""
-    _, req = _pair(FLAT_SCENARIOS[0], "torch")
+def test_compute_error_propagates_no_ladder(monkeypatch):
+    """A failing kernel on the card is not papered over by a slower rung:
+    every rung of a card config keeps its backends and its device, and
+    the last rung's error goes to the caller.  There is no card here, so
+    resolution is stubbed and the rungs fail in ``_compute``.  An
+    all-host config has no rung below, and its error propagates too."""
+    import dataclasses
+
+    from repro_torch.serve import resilience
+    monkeypatch.setattr(resilience, "get_evaluator", lambda b, d: (b, None))
+    monkeypatch.setattr(resilience, "resolve_partition_backend",
+                        lambda b, d: b)
+    monkeypatch.setattr(resilience._build, "load_library", lambda: None)
+    tried = []
+
+    class FailingKernel(MappingService):
+        def _compute(self, request):
+            tried.append(request.config)
+            raise RuntimeError("mapscore launch failed")
+
+    _, req = _pair(FLAT_SCENARIOS[0], "hopper")
+    req.config = dataclasses.replace(req.config, device="cuda",
+                                     partition_backend="torch")
+    svc = FailingKernel()
+    with pytest.raises(RuntimeError, match="mapscore launch failed"):
+        svc.map(req)
+    assert [(c.fused, c.score_backend, c.partition_backend, c.device)
+            for c in tried] == [("auto", "hopper", "torch", "cuda"),
+                                ("off", "hopper", "torch", "cuda")]
+    s = svc.stats()
+    assert (s["cold"], s["degraded"], s["rung_failures"]) == (0, 0, 2)
+    assert s["inflight"] == 0 and len(svc.results) == 0
+
+    _, req = _pair(FLAT_SCENARIOS[0], "numpy")
     svc = MappingService()
-    with faults.injected("score.torch", "error", count=1):
+    with faults.injected("score.numpy", "error", count=1):
         with pytest.raises(faults.InjectedFault):
             svc.map(req)
     assert svc.stats()["inflight"] == 0 and svc.stats()["cold"] == 0

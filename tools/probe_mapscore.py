@@ -59,6 +59,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -192,7 +193,10 @@ def old_wrapper(old_dir: str, lib: str):
     cdll.mapscore_error_string.argtypes = [ctypes.c_int]
     fn = cdll.mapscore_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
+    # every argument of the old ``mapscore_launch`` before the parameter
+    # struct and the stream is a device address
+    nptr = len(inspect.signature(kernel.mapscore_launch).parameters) - 2
+    fn.argtypes = [ctypes.c_void_p] * nptr + [
         ctypes.POINTER(kernel.MapscoreParams), ctypes.c_void_p]
     kernel._LAUNCH = (fn, cdll.mapscore_error_string)
     return ops
@@ -421,8 +425,8 @@ def main(argv=None) -> int:
                     report["checks"])
 
     for stack in args.stacks:
-        req, _, _, st, _ = smoke.full_size_problem(stack + "-latency", SCALE,
-                                                   ROTATIONS)
+        prob = smoke.full_size_problem(stack + "-latency", SCALE, ROTATIONS)
+        req, st = prob["req"], prob["stack"]
         m = req.alloc.machine
         for traffic in (True, False):
             cs, edges, w, inv_bw = scoring_inputs(
