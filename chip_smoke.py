@@ -90,6 +90,14 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    launch must be bit-identical; at the three bfloat16 model shapes the
    kernel, the plain version, the bound and ``scaled_dot_product_attention``
    (with a window: an explicit boolean mask, and no cap) are timed.
+   Then the shapes the moe, encdec and vlm families give it (no cap):
+   whisper-small's encoder (B=4, S=T=1500, H=KH=12, D=64, non-causal:
+   the ragged last key tile), decoder (S=T=64, causal), cross-attention
+   (S=64 and S=1 over T=1500, non-causal), in float32 and bfloat16;
+   mixtral-8x22b's prefill (B=4, S=5000, H=48, KH=8, D=128, window
+   4096) and internvl2-26b's (S=2048, causal), bfloat16; the same
+   tolerances and bit-identical reruns, and the bfloat16 shapes but the
+   decoder's timed beside SDPA and the bound.
 5. ``model``   — yi-6b at full width and depth, random weights of seed 0
    (``init_params``, block matrices widened to one layer's fan-in),
    serves 4 prompts of 4000 tokens (numpy, seed 0) for 16 new tokens:
@@ -121,13 +129,40 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 8. ``hybrid_model`` — zamba2-1.2b (38 mamba layers, the shared attention
    block at 6 sites) in bfloat16, the same checks: per prefill 38 SSD and
    6 flash-attention launches.
+9. ``moe_model`` — mixtral-8x22b at full width, 4 of its 56 layers (281
+   GB of bfloat16 weights do not fit one card; 10.4e9 parameters do),
+   random weights of seed 0 widened as in phase 5 (experts to one
+   expert's fan-in), 4 prompts of 5000 tokens (numpy, seed 0: past the
+   4096 window) and 16 new tokens.  In float32, then bfloat16:
+   ``generate`` (timed, peak memory, every kernel count zeroed just
+   before: K2 once a layer, nothing else) gives the tokens of the
+   driven prefill + decode steps, whose logits agree with the same calls
+   on the plain attention (``attn_impl="xla_flash"``, fed the served
+   tokens) to ``LOGITS_TOL``, their greedy tokens equal in float32 — not
+   with one full forward: capacity is per sequence, so a decode step
+   drops other pairs than a longer forward; the share of (token, choice)
+   pairs dropped per layer is printed.  bfloat16 must lie beyond the
+   float32 tolerance from float32 at the first served position.
+10. ``encdec_model`` — whisper-small at full depth (12 + 12 layers),
+   frames (4, 1500, 128) and 4 prompts of 64 tokens: the same checks,
+   plus prefill's last-position logits against ``logits_fn``'s (plain)
+   there; K2 36 times a prefill (12 encoder, 12 causal self, 12 cross)
+   and 12 a decode step (the cross-attention, one query a head): 216 a
+   ``generate``.
+11. ``vlm_model`` — internvl2-26b, patches (4, 1024, 3200) and 4 prompts
+   of 2048 tokens: float32 at 12 of its 48 layers (79.6 GB of float32
+   weights do not fit), bfloat16 at full depth (39.8 GB), each served
+   position's logits against one plain full forward as in phase 5; K2
+   48 times a ``generate``.
+   Each of 9-11 prints ``prefill_s``, ``decode_ms_per_token``,
+   ``peak_mem_gib``, the K2 launches and its wall time.
 
-With ``--profile`` four more ``profile`` lines give the device time by
+With ``--profile`` more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
 of one mapscore launch at the largest shape, one more cold request
 (the fused path), one cold ``minighost-xk7_sparse-node-latency`` request,
-and of one bfloat16 prefill and one decode step of yi-6b and of
-mamba2-2.7b.
+and of one bfloat16 prefill and one decode step of yi-6b, mamba2-2.7b,
+mixtral-8x22b (4 layers) and whisper-small.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -678,23 +713,59 @@ ATTN_TIMED_CASES = (ATTN_TIMED, ("gemma2-27b-local", "bfloat16"),
                     ("zamba2-1.2b-prefill", "bfloat16"))
 
 
-def live_entries(s: int, window: int) -> int:
-    """Score entries a causal (windowed) self-attention of one head over
-    ``s`` positions needs."""
+# the shapes the moe, encdec and vlm families give the kernel: (name, B,
+# S, T, H, KH, D, dtype, window, causal); no cap.  whisper-small's
+# encoder and cross-attention are non-causal over T = 1500 keys (a ragged
+# last key tile), its decode step's cross-attention one query a head;
+# mixtral-8x22b's window cuts a 5000-position prefill, GQA 6:1
+ATTN_FAMILY_CASES = [
+    ("whisper-small-encoder", 4, 1500, 1500, 12, 12, 64, "float32", 0,
+     False),
+    ("whisper-small-encoder", 4, 1500, 1500, 12, 12, 64, "bfloat16", 0,
+     False),
+    ("whisper-small-decoder", 4, 64, 64, 12, 12, 64, "bfloat16", 0, True),
+    ("whisper-small-cross", 4, 64, 1500, 12, 12, 64, "float32", 0, False),
+    ("whisper-small-cross", 4, 64, 1500, 12, 12, 64, "bfloat16", 0, False),
+    ("whisper-small-cross-decode", 4, 1, 1500, 12, 12, 64, "float32", 0,
+     False),
+    ("whisper-small-cross-decode", 4, 1, 1500, 12, 12, 64, "bfloat16", 0,
+     False),
+    ("mixtral-8x22b-prefill", 4, 5000, 5000, 48, 8, 128, "bfloat16", 4096,
+     True),
+    ("internvl2-26b-prefill", 4, 2048, 2048, 48, 8, 128, "bfloat16", 0,
+     True),
+]
+ATTN_FAMILY_TIMED = tuple(
+    (c[0], "bfloat16") for c in ATTN_FAMILY_CASES
+    if c[7] == "bfloat16" and c[0] != "whisper-small-decoder")
+# the plain version's float32 score tensor above this many bytes is
+# computed a batch row at a time (mixtral's is 19.2 GB)
+PLAIN_SCORE_BYTES = 2 ** 33
+
+
+def live_entries(s: int, window: int, t: int | None = None,
+                 causal: bool = True) -> int:
+    """Score entries one head of an attention of ``s`` queries over
+    ``t`` keys (default ``s``) needs: query q sees the keys k < t with
+    k <= q when causal and q - k < window when windowed."""
     import numpy as np
+    t = s if t is None else t
     q = np.arange(s, dtype=np.int64)
     lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
-    return int((q - lo + 1).sum())
+    hi = np.minimum(q, t - 1) if causal else np.full_like(q, t - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def attention_bound(b, s, h, kh, d, dtype, window) -> dict:
+def attention_bound(b, s, h, kh, d, dtype, window, t=None,
+                    causal=True) -> dict:
     """Least time for one call: every input read and the output written
     once over the memory rate, or 4*D flops (q.k and p.v) per live score
     entry over the peak rate of the type (bf16 tensor cores; float32 must
     stay float32, so the CUDA cores' rate)."""
+    t = s if t is None else t
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * b * s * h * d + 2 * b * s * kh * d) * elt
-    flops = b * h * live_entries(s, window) * 4 * d
+    nbytes = (2 * b * s * h * d + 2 * b * t * kh * d) * elt
+    flops = b * h * live_entries(s, window, t, causal) * 4 * d
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -703,42 +774,55 @@ def attention_bound(b, s, h, kh, d, dtype, window) -> dict:
             "bound_bytes": nbytes, "bound_flops": flops}
 
 
-def attention_inputs(b, s, h, kh, d, dtype, seed):
-    """q (b, s, h, d), k and v (b, s, kh, d), standard normal on the card."""
+def attention_inputs(b, s, h, kh, d, dtype, seed, t=None):
+    """q (b, s, h, d), k and v (b, t, kh, d) (t defaults to s), standard
+    normal on the card."""
     import torch
+    t = s if t is None else t
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     return tuple(torch.randn(shape, generator=gen, device="cuda").to(tdt)
-                 for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+                 for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
 
 
-def library_attention(q, k, v, window: int):
+def library_attention(q, k, v, window: int, causal: bool = True):
     """One ``scaled_dot_product_attention`` call on the kernel's inputs
-    (causal; with a window, an explicit boolean mask of the causal window,
-    which takes SDPA off its flash path).  It applies no soft-cap: no
-    PyTorch call does."""
+    (causal or not; with a window, an explicit boolean mask of the causal
+    window, which takes SDPA off its flash path).  It applies no
+    soft-cap: no PyTorch call does."""
     import torch
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if not window:
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     i = torch.arange(q.shape[1], device=q.device)
     mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
+def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed, *,
+                   t=None, causal=True, timed=None):
+    """The kernel against its plain version on one shape, a rerun
+    bit-identical; timed beside the plain version, SDPA and the bound
+    when ``(name, dtype)`` is in ``timed`` (default
+    ``ATTN_TIMED_CASES``)."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
-    q, k, v = attention_inputs(b, s, h, kh, d, dtype, seed)
-    kw = dict(causal=True, window=window, cap=cap)
+    t = s if t is None else t
+    q, k, v = attention_inputs(b, s, h, kh, d, dtype, seed, t)
+    kw = dict(causal=causal, window=window, cap=cap)
+    rows = (1 if b * h * s * t * 4 > PLAIN_SCORE_BYTES else b)
 
     def plain():
-        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), **kw).transpose(1, 2)
+        return torch.cat([
+            ref.attention_ref(q[i:i + rows].transpose(1, 2),
+                              k[i:i + rows].transpose(1, 2),
+                              v[i:i + rows].transpose(1, 2),
+                              **kw).transpose(1, 2)
+            for i in range(0, b, rows)])
 
     n0 = ops.launch_count
     got = ops.flash_attention(q, k, v, **kw)
@@ -752,20 +836,34 @@ def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
            "window": window, "cap": cap, "max_abs_err": err,
            "mean_abs_out": float(want.float().abs().mean()),
            "atol": atol, "rtol": rtol}
+    if t != s or not causal:
+        rec.update(t=t, causal=causal)
     check(torch.equal(got, again), f"{name}/{dtype}: second launch differs")
     check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
           f"{name}/{dtype}: kernel vs plain max abs err {err}")
-    if (name, dtype) in ATTN_TIMED_CASES:
+    if (name, dtype) in (ATTN_TIMED_CASES if timed is None else timed):
         rec["ms"] = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
         rec["plain_ms"] = cuda_ms(plain, 3, 1)
-        rec["library_ms"] = cuda_ms(library_attention(q, k, v, window), 10)
+        rec["library_ms"] = cuda_ms(library_attention(q, k, v, window,
+                                                      causal), 10)
         rec["library"] = ("scaled_dot_product_attention, "
                           + ("boolean window mask, no cap" if window
-                             else "is_causal"))
-        rec.update(attention_bound(b, s, h, kh, d, dtype, window))
+                             else "is_causal" if causal else "no mask"))
+        rec.update(attention_bound(b, s, h, kh, d, dtype, window, t,
+                                   causal))
     del q, k, v, got, again, want
     torch.cuda.empty_cache()
     return rec
+
+
+def family_attention_cases() -> list:
+    """``ATTN_FAMILY_CASES`` through ``attention_case``; the bf16 model
+    shapes timed."""
+    return [attention_case(name, b, s, h, kh, d, dtype, window, 0.0,
+                           seed=100 + i, t=t, causal=causal,
+                           timed=ATTN_FAMILY_TIMED)
+            for i, (name, b, s, t, h, kh, d, dtype, window, causal)
+            in enumerate(ATTN_FAMILY_CASES)]
 
 
 # ---------------------------------------------------------------------------
@@ -773,70 +871,82 @@ def attention_case(name, b, s, h, kh, d, dtype, window, cap, seed):
 # ---------------------------------------------------------------------------
 
 def model_params(cfg) -> dict:
-    """``init_params`` of seed 0, drawn in float32, with every stacked
-    block matrix widened by sqrt(L) to one layer's fan-in, then rounded
-    leaf by leaf to ``cfg``'s dtypes (so the bfloat16 model is the
-    rounding of the float32 one).  The reference's init counts the layer
-    axis in the fan-in; its random yi-6b's blocks barely move the
-    residual stream, and the logits compared below would hardly see
-    attention."""
-    import dataclasses
+    """Random weights of seed 0 (``draw_leaves``: float32 normal draws,
+    leaf by leaf, in ``init_params``' order), every stacked block matrix
+    widened by the square root of its ``layers`` and ``experts`` axes to
+    one layer's (one expert's) fan-in, then rounded leaf by leaf to
+    ``cfg``'s dtypes before the next is drawn — so the bfloat16 model is
+    the rounding of the float32 one, and at most one leaf is ever held
+    in float32.  The reference's init counts the layer axis in the
+    fan-in; its random yi-6b's blocks barely move the residual stream,
+    and the logits compared below would hardly see attention."""
     import math
-    from repro_torch.models import init_params, params_spec
-    from repro_torch.models.params import DTYPES, spec_leaves
-    params = init_params(dataclasses.replace(cfg, dtype="float32"), seed=0,
-                         device="cuda")
-    for path, p in spec_leaves(params_spec(cfg)):
+    from repro_torch.models.params import DTYPES, draw_leaves
+    params: dict = {}
+    for path, p, val in draw_leaves(cfg, seed=0, device="cuda"):
+        if p.init == "normal" and not p.scale:
+            for axis in ("layers", "experts"):
+                if axis in p.axes:
+                    val.mul_(math.sqrt(p.shape[p.axes.index(axis)]))
         node = params
         for key in path[:-1]:
-            node = node[key]
-        val = node[path[-1]]
-        if p.init == "normal" and not p.scale and "layers" in p.axes:
-            val.mul_(math.sqrt(p.shape[p.axes.index("layers")]))
+            node = node.setdefault(key, {})
         node[path[-1]] = val.to(DTYPES[p.dtype or cfg.dtype])
+        del val
     return params
 
 
-def drive(cfg, params, prompts, max_seq: int):
+def model_inputs(prompts, extras=None) -> dict:
+    """The prefill's batch on the card: the prompts and the family's
+    frontend inputs (numpy)."""
+    import torch
+    return {"tokens": torch.as_tensor(prompts, device="cuda"),
+            **{k: torch.as_tensor(v, device="cuda")
+               for k, v in (extras or {}).items()}}
+
+
+def drive(cfg, params, prompts, max_seq: int, extras=None, forced=None):
     """prefill + greedy decode steps, as ``ServeEngine.generate`` runs
-    them, keeping every served position's logits.  Returns (logits
-    (B, NEW, V) float32 numpy, tokens (B, NEW) int32, prefill s, decode
-    s)."""
+    them, keeping every served position's logits; with ``forced``
+    (B, NEW) each step is fed those tokens instead of its own choice.
+    Returns (logits (B, NEW, V) float32 numpy, greedy tokens (B, NEW)
+    int32, prefill s, decode s)."""
     import numpy as np
     import torch
     from repro_torch.models import decode_step, prefill
-    tokens = torch.as_tensor(prompts, device="cuda")
+    batch = model_inputs(prompts, extras)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        lg, cache = prefill(cfg, params, {"tokens": tokens}, max_seq=max_seq)
+        lg, cache = prefill(cfg, params, batch, max_seq=max_seq)
         logits = [lg[:, -1].float().cpu()]
         t1 = time.perf_counter()
-        nxt = lg[:, -1].argmax(-1)
-        out = [nxt]
+        out = [lg[:, -1].argmax(-1)]
+        feed = (out if forced is None else
+                list(torch.as_tensor(forced, dtype=torch.int64,
+                                     device="cuda").T))
         for i in range(NEW_TOKENS - 1):
-            lg, cache = decode_step(cfg, params, cache, nxt[:, None],
+            lg, cache = decode_step(cfg, params, cache, feed[i][:, None],
                                     prompts.shape[1] + i)
             logits.append(lg[:, 0].float().cpu())
-            nxt = lg[:, 0].argmax(-1)
-            out.append(nxt)
+            out.append(lg[:, 0].argmax(-1))
         toks = torch.stack(out, 1).cpu().numpy().astype(np.int32)
     t2 = time.perf_counter()
     return torch.stack(logits, 1).numpy(), toks, t1 - t0, t2 - t1
 
 
-def full_forward_logits(cfg, params, prompts, served):
+def full_forward_logits(cfg, params, prompts, served, extras=None):
     """The plain path's logits at the served positions, from one forward
     pass over prompt + served tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.models import logits_fn
-    seq = torch.as_tensor(np.concatenate([prompts, served[:, :-1]], axis=1),
-                          device="cuda")
+    batch = model_inputs(np.concatenate([prompts, served[:, :-1]], axis=1),
+                         extras)
     plain = dataclasses.replace(cfg, attn_impl="xla_flash")
     with torch.inference_mode():
-        lg = logits_fn(plain, params, {"tokens": seq})
+        lg = logits_fn(plain, params, batch)
         return lg[:, prompts.shape[1] - 1:].float().cpu().numpy()
 
 
@@ -1237,6 +1347,226 @@ def ssm_phase(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 9-11: the moe, encdec and vlm families at full width
+# ---------------------------------------------------------------------------
+
+MOE_MODEL, ENCDEC_MODEL, VLM_MODEL = ("mixtral-8x22b", "whisper-small",
+                                      "internvl2-26b")
+# depth cuts: mixtral-8x22b's 56 layers are 281 GB of bfloat16 weights, 4
+# are 10.4e9 parameters (20.8 GB; 41.6 GB in float32); internvl2-26b's 48
+# layers are 39.8 GB in bfloat16 and 79.6 GB in float32, so its float32
+# check runs 12
+MOE_LAYERS, VLM_F32_LAYERS = 4, 12
+# mixtral's prompts outrun its 4096-position window
+FAMILY_PROMPT_LEN = {MOE_MODEL: 5000, ENCDEC_MODEL: 64, VLM_MODEL: 2048}
+
+
+def family_inputs(cfg, prompt_len: int):
+    """``PROMPTS`` prompts (numpy, seed 0) and, drawn after them from the
+    same generator, the family's frontend inputs: ``frames`` (encdec) or
+    ``patches`` (vlm), standard normal float32."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(PROMPTS, prompt_len))
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = rng.standard_normal(
+            (PROMPTS, cfg.encoder_seq, cfg.frontend_dim), dtype=np.float32)
+    elif cfg.family == "vlm":
+        extras["patches"] = rng.standard_normal(
+            (PROMPTS, cfg.num_patches, cfg.frontend_dim), dtype=np.float32)
+    return prompts, extras
+
+
+def k2_launches_per_generate(cfg) -> int:
+    """K2 launches of one ``generate`` of ``NEW_TOKENS``: one per
+    attention site of the prefill; for encdec (12 encoder, 12 causal
+    self, 12 cross) plus one per layer a decode step, its
+    cross-attention (the self-attention over the cache is the plain
+    ``attention_decode``)."""
+    if cfg.family == "encdec":
+        return (cfg.encoder_layers + 2 * cfg.num_layers
+                + (NEW_TOKENS - 1) * cfg.num_layers)
+    return cfg.num_layers
+
+
+def moe_drop_shares(cfg, params, prompts) -> list:
+    """The share of (token, choice) pairs capacity drops in each layer
+    of one prefill of ``prompts``: ``layers.moe_block`` wrapped for that
+    call to read ``moe_dispatch``'s keep mask (a measurement pass of its
+    own, outside every counted run)."""
+    import torch
+    from repro_torch.models import layers, prefill
+    inner, shares = layers.moe_block, []
+
+    def counted(cfg_, p, x):
+        keep = layers.moe_dispatch(cfg_, p["router"], x)[3]
+        shares.append(1.0 - float(keep.float().mean()))
+        return inner(cfg_, p, x)
+
+    layers.moe_block = counted
+    try:
+        with torch.inference_mode():
+            prefill(cfg, params, model_inputs(prompts))
+    finally:
+        layers.moe_block = inner
+    return shares
+
+
+def family_model(name: str, dtype: str, *, layers: int = 0,
+                 reference: str, profile: bool = False) -> tuple:
+    """One of the moe / encdec / vlm families at its published width in
+    ``dtype`` (``layers`` cuts the depth): random weights of seed 0
+    widened as in phase 5, ``family_inputs``, ``NEW_TOKENS`` new tokens.
+    ``ServeEngine.generate``, timed, with every kernel count set to 0
+    just before and read just after, gives the tokens of prefill + decode
+    steps driven as it drives them; the driven logits are then held to
+    ``reference`` within ``LOGITS_TOL``:
+
+    * ``"plain_drive"`` — the same prefill / decode calls with
+      ``attn_impl="xla_flash"``, tokens equal too in float32 (moe:
+      capacity is per sequence, so a decode step is not one row of a
+      longer forward; encdec: the decode steps attend over the unfilled
+      self-attention cache prefill leaves, as in the reference);
+    * ``"full_forward"`` — one plain full forward over prompt + served
+      tokens (phase 5's check).
+
+    encdec also holds prefill's last-position logits against
+    ``logits_fn``'s (plain) at that position: the same function.
+    Returns (record, driven logits)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, logits_fn, params_spec
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    base = get_config(name)
+    cfg = dataclasses.replace(base, dtype=dtype,
+                              num_layers=layers or base.num_layers)
+    check(cfg.attn_impl == "hopper", f"{name}: not served through K2")
+    plen = FAMILY_PROMPT_LEN[name]
+    prompts, extras = family_inputs(cfg, plen)
+    max_seq = plen + NEW_TOKENS
+    tol = LOGITS_TOL[dtype]
+    plain = dataclasses.replace(cfg, attn_impl="xla_flash")
+    params = model_params(cfg)
+    rec = {"model": name, "dtype": dtype,
+           "params": count_params(params_spec(cfg)),
+           "layers": cfg.num_layers, "published_layers": base.num_layers,
+           "d_model": cfg.d_model, "prompts": PROMPTS, "prompt_len": plen,
+           "new_tokens": NEW_TOKENS, "max_seq": max_seq, "seed": 0,
+           "extras": {k: list(v.shape) for k, v in extras.items()},
+           "logits_tol": tol, "reference": reference}
+    if cfg.family == "encdec":
+        rec["encoder_layers"] = cfg.encoder_layers
+
+    logits, toks, pre_s, dec_s = drive(cfg, params, prompts, max_seq,
+                                       extras)
+    engine = ServeEngine(cfg, params, max_seq=max_seq, batch=PROMPTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)       # the model path only
+    t0 = time.perf_counter()
+    served = engine.generate(prompts, max_new_tokens=NEW_TOKENS,
+                             extras=extras)
+    gen_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_k2 = k2_launches_per_generate(cfg)
+    check(counts == {"mapscore": 0, "flash_attention": want_k2, "ssd": 0,
+                     "segscan": 0},
+          f"{name}/{dtype}: generate launched {counts}, expected K2 "
+          f"{want_k2} times and nothing else")
+    check(np.array_equal(toks, served),
+          f"{name}/{dtype}: prefill + decode_step tokens differ from "
+          "generate's")
+    check(np.isfinite(logits).all(), f"{name}/{dtype}: non-finite logits")
+    if reference == "plain_drive":
+        # fed the served tokens, so that one near tie cannot move every
+        # later position; its own choices are compared
+        want, want_toks, _, _ = drive(plain, params, prompts, max_seq,
+                                      extras, forced=served)
+        if dtype == "float32":
+            check(np.array_equal(want_toks, served),
+                  f"{name}/{dtype}: the plain drive's tokens differ")
+        rec["plain_tokens_equal"] = bool(np.array_equal(want_toks, served))
+    else:
+        want = full_forward_logits(cfg, params, prompts, served, extras)
+    err = scaled_err(logits, want)
+    rec.update({
+        "scaled_err": err, "max_abs_logit": float(np.abs(want).max()),
+        "generate_s": gen_s, "prefill_s": pre_s,
+        "decode_ms_per_token": dec_s / (NEW_TOKENS - 1) * 1e3,
+        "tokens_per_s": PROMPTS * NEW_TOKENS / gen_s,
+        "prefill_tokens_per_s": PROMPTS * plen / pre_s,
+        "generate_launches": counts, "peak_mem_gib": peak / 2 ** 30,
+        "tokens": served[0].tolist()})
+    if cfg.family == "encdec":
+        with torch.inference_mode():
+            full = logits_fn(plain, params, model_inputs(prompts, extras))
+            last = full[:, -1].float().cpu().numpy()
+        del full
+        rec["prefill_vs_logits_fn"] = scaled_err(logits[:, 0], last)
+        check(rec["prefill_vs_logits_fn"] <= tol,
+              f"{name}/{dtype}: prefill's last logits "
+              f"{rec['prefill_vs_logits_fn']} from logits_fn's")
+    if cfg.family == "moe":
+        rec["dropped_share_by_layer"] = moe_drop_shares(cfg, params,
+                                                        prompts)
+    check(err <= tol, f"{name}/{dtype}: served logits {err} from the "
+                      f"{reference}")
+    if profile:
+        model_profile(cfg, params, prompts, max_seq, name, extras)
+    del params, engine
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit(FAMILY_PHASES[name], **rec)
+    return rec, logits
+
+
+FAMILY_PHASES = {MOE_MODEL: "moe_model", ENCDEC_MODEL: "encdec_model",
+                 VLM_MODEL: "vlm_model"}
+
+
+def family_phases(profile: bool) -> dict:
+    """Phases 9-11.  mixtral and whisper: float32, then bfloat16, the
+    same model, whose first served position must lie beyond the float32
+    tolerance from the float32 one (else that tolerance could not tell
+    them apart); internvl2: float32 at ``VLM_F32_LAYERS``, bfloat16 at
+    full depth."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 would not be float32")
+    out = {}
+    for name, layers, reference in (
+            (MOE_MODEL, MOE_LAYERS, "plain_drive"),
+            (ENCDEC_MODEL, 0, "plain_drive"),
+            (VLM_MODEL, 0, "full_forward")):
+        t0 = time.perf_counter()
+        f32, logits32 = family_model(
+            name, "float32", reference=reference,
+            layers=VLM_F32_LAYERS if name == VLM_MODEL else layers)
+        bf16, logits16 = family_model(name, "bfloat16", layers=layers,
+                                      reference=reference,
+                                      profile=profile and name != VLM_MODEL)
+        rec = {"float32": f32, "bfloat16": bf16,
+               "wall_s": time.perf_counter() - t0}
+        if name != VLM_MODEL:
+            gap = scaled_err(logits16[:, 0], logits32[:, 0])
+            rec["bfloat16_vs_float32_at_prefill"] = gap
+            check(gap > LOGITS_TOL["float32"],
+                  f"{name}: bfloat16 lies only {gap} from float32: the "
+                  "float32 tolerance would not catch it")
+        emit(FAMILY_PHASES[name], part="summary", wall_s=rec["wall_s"],
+             **{k: v for k, v in rec.items()
+                if k.startswith("bfloat16_vs")})
+        out[FAMILY_PHASES[name]] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where the device's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -1266,18 +1596,19 @@ def device_profile(fn) -> dict:
             "by_name": by_name}
 
 
-def model_profile(cfg, params, prompts, max_seq, name=MODEL) -> None:
+def model_profile(cfg, params, prompts, max_seq, name=MODEL,
+                  extras=None) -> None:
     """One prefill and one decode step of the served model: device time
     by kernel name, idle share.  (For ssm models the step runs on the
     unfilled cache prefill returns: its cost does not depend on the
     state's values.)"""
     import torch
     from repro_torch.models import decode_step, prefill
-    tokens = torch.as_tensor(prompts, device="cuda")
+    batch = model_inputs(prompts, extras)
     with torch.inference_mode():
-        pre = device_profile(lambda: prefill(cfg, params, {"tokens": tokens},
+        pre = device_profile(lambda: prefill(cfg, params, batch,
                                              max_seq=max_seq))
-        lg, cache = prefill(cfg, params, {"tokens": tokens}, max_seq=max_seq)
+        lg, cache = prefill(cfg, params, batch, max_seq=max_seq)
         nxt = lg[:, -1].argmax(-1)[:, None]
         step = device_profile(lambda: decode_step(cfg, params, cache, nxt,
                                                   prompts.shape[1]))
@@ -2397,8 +2728,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time by kernel name of one "
                          "mapscore launch, one cold request, and one "
-                         "prefill and decode step of yi-6b and of "
-                         "mamba2-2.7b (torch.profiler)")
+                         "prefill and decode step of yi-6b, mamba2-2.7b, "
+                         "mixtral-8x22b and whisper-small "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2431,6 +2763,7 @@ def main(argv=None) -> int:
 
     # -- phase 4: flash attention vs plain ----------------------------------
     attn = [attention_case(*c, seed=i) for i, c in enumerate(ATTN_CASES)]
+    attn += family_attention_cases()
     emit("attention", cases=attn,
          timing="median of 10 kernel / 10 library / 3 plain launches, "
                 "CUDA events")
@@ -2450,6 +2783,9 @@ def main(argv=None) -> int:
     emit("hybrid_model", **{k: v for k, v in hybrid.items()
                             if k != "prefill_last"})
 
+    # -- phases 9-11: the moe, encdec and vlm families ----------------------
+    families = family_phases(args.profile)
+
     # -- the hier phase's all-numpy latency answers, after every timed phase
     emit("hier_numpy", requests=numpy_oracles(
         mapping["hier"]["requests"], args.scale, args.rotations),
@@ -2459,6 +2795,11 @@ def main(argv=None) -> int:
               "float32 volumes (K1)")
 
     # -- the kernels line ---------------------------------------------------
+    k2_paths = {"model": model["bfloat16"]["flash_launches"],
+                "hybrid_model_prefill":
+                    hybrid["prefill_launches"]["flash_attention"],
+                **{p: families[p]["bfloat16"]["generate_launches"]
+                   ["flash_attention"] for p in families}}
     fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
     sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED[0])
     full, small = mapping["full"], mapping["small"]
@@ -2486,7 +2827,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:88",
-        "launches": model["bfloat16"]["flash_launches"],
+        "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
         "max_abs_err": max(r["max_abs_err"] for r in attn),
         "ms": fa["ms"], "plain_ms": fa["plain_ms"],
         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],

@@ -1,9 +1,11 @@
 """Architecture registry: a name or alias resolves to its ``ModelConfig``.
 
 The same ten configurations, names and aliases as the reference
-package.  Every config resolves; serving runs the ``dense``, ``ssm``
-and ``hybrid`` families so far (:mod:`repro_torch.models` raises
-``NotImplementedError`` for the others).
+package, in its six families: ``dense`` (yi-6b, gemma3-27b,
+minitron-4b, gemma2-27b), ``moe`` (grok-1-314b, mixtral-8x22b), ``ssm``
+(mamba2-2.7b), ``hybrid`` (zamba2-1.2b), ``encdec`` (whisper-small) and
+``vlm`` (internvl2-26b).  Every config resolves and every family is
+served (:mod:`repro_torch.models`, :class:`repro_torch.serve.ServeEngine`).
 """
 
 from __future__ import annotations

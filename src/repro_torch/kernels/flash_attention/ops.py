@@ -8,11 +8,16 @@ kernel — or raises; for CPU tensors it runs the plain version
 Differences from the reference wrapper, by design: nothing is transposed
 or padded (the kernel reads the model layout by strides and masks the
 ragged ends of S and T itself), and there are no block-size arguments —
-the kernel has its own tiles.  It refuses what the reference refuses at
-its default key block of 512: a non-causal call whose keys that block
-would pad.  Where the reference pads keys under the causal mask the
-padded rows lie beyond every query when ``S <= T``, so both compute the
-same function there.
+the kernel has its own tiles.  The reference refuses a non-causal call
+whose keys its key block (512 by default) would pad: its padded key rows
+would take part in the softmax.  This wrapper takes such calls (whisper's
+encoder and cross-attention, T = 1500): the kernel pads nothing, it
+masks every key position ``>= T`` on both paths, so a ragged non-causal
+call computes the reference's attention function
+(``attention_quadratic``), which is what the plain version computes.
+Where the reference pads keys under the causal mask the padded rows lie
+beyond every query when ``S <= T``, so both compute the same function
+there too.
 """
 
 from __future__ import annotations
@@ -25,9 +30,6 @@ from .ref import attention_ref
 # wrapper calls that launched the kernel (a plain int; the plain version
 # never counts)
 launch_count = 0
-
-# the reference wrapper's default key block (``bk``)
-REF_BK = 512
 
 
 def check_rows_aligned(name: str, x: torch.Tensor) -> None:
@@ -54,14 +56,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, s, h, d = q.shape
-    t, kh = k.shape[1], k.shape[2]
+    kh = k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or kh == 0 or h % kh:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
                          " (same B and D, kv heads dividing heads)")
-    bk = min(REF_BK, t)
-    if bk and t % bk and not causal:
-        raise ValueError("key padding requires causal masking to be safe; "
-                         "pass block sizes dividing T for non-causal use")
     if q.device.type != "cuda":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,

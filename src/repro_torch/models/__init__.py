@@ -1,6 +1,6 @@
-"""repro_torch.models — the model zoo's dense, ssm and hybrid families in
-plain torch, with prefill attention and the full-sequence SSD scan
-through hand-written kernels on the card."""
+"""repro_torch.models — the model zoo's six families (dense, moe, ssm,
+hybrid, encdec, vlm) in plain torch, with prefill attention and the
+full-sequence SSD scan through hand-written kernels on the card."""
 
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced
 from .decode import decode_step, init_cache, prefill

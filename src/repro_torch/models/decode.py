@@ -2,9 +2,10 @@
 
 Cache layout (leading ``layers`` axis, as in the reference):
 
-dense  : {"k","v": (L, B, S, KH, D)} in the model dtype
-ssm    : {"state": (L, B, H, P, N) float32, "conv": (L, B, W-1, C)}
-hybrid : ssm caches + {"attn_k","attn_v": (sites, B, S, KH, D)}
+dense/moe/vlm : {"k","v": (L, B, S, KH, D)} in the model dtype
+ssm           : {"state": (L, B, H, P, N) float32, "conv": (L, B, W-1, C)}
+hybrid        : ssm caches + {"attn_k","attn_v": (sites, B, S, KH, D)}
+encdec        : {"k","v": (L, B, S, KH, D), "xk","xv": (L, B, T, KH, D)}
 
 The decode step consumes one token per sequence at position ``pos`` and
 returns next-token logits plus the cache, which it updates IN PLACE:
@@ -22,23 +23,29 @@ from . import layers as L
 from .config import ModelConfig
 from .params import DTYPES
 from .transformer import (_attn_windowed, _dense_block, _layer_flags,
-                          _mamba_layer, _stack_dense, _stack_hybrid,
-                          _stack_ssm, embed_tokens, is_attn_site,
-                          layer_params, require_ported, unembed)
+                          _mamba_layer, _stack_dense, _stack_encdec_decoder,
+                          _stack_hybrid, _stack_ssm, embed_tokens,
+                          embed_with_patches, encode, is_attn_site,
+                          layer_params, unembed)
+
+ATTENTION = ("dense", "moe", "vlm")   # the dense layer stack and cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> dict:
-    require_ported(cfg, "init_cache")
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
     nl, kh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     out: dict = {}
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION + ("encdec",):
         out["k"] = torch.zeros((nl, batch, max_seq, kh, hd), dtype=dt,
                                device=dev)
         out["v"] = torch.zeros_like(out["k"])
-    else:  # ssm, hybrid
+    if cfg.family == "encdec":
+        out["xk"] = torch.zeros((nl, batch, cfg.encoder_seq, kh, hd),
+                                dtype=dt, device=dev)
+        out["xv"] = torch.zeros_like(out["xk"])
+    if cfg.family in ("ssm", "hybrid"):
         h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         conv_dim = cfg.ssm_inner + 2 * cfg.ssm_state
         out["state"] = torch.zeros((nl, batch, h, p, n),
@@ -59,13 +66,13 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos: int):
     tokens: (B, 1) integer tensor — the token just produced/fed.
     pos   : its position (cache fill level), a Python int.
     Returns (logits (B, 1, V), cache) — the same cache dict, its tensors
-    written in place (k/v at ``pos``; the ssm state and conv context).
+    written in place (k/v at ``pos``; the ssm state and conv context);
+    encdec reads its cross-attention k/v (``xk``, ``xv``) and leaves them.
     """
-    require_ported(cfg, "decode_step")
     x = embed_tokens(cfg, params, tokens)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     lp = params["layers"]
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION:
         flags = _layer_flags(cfg)
         for i in range(cfg.num_layers):
             x, _ = _attn_windowed(cfg, layer_params(lp, i), x, positions,
@@ -73,6 +80,23 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos: int):
                                   cache={"k": cache["k"][i],
                                          "v": cache["v"][i]},
                                   cache_pos=pos)
+    elif cfg.family == "encdec":
+        for i in range(cfg.num_layers):
+            p = layer_params(lp, i)
+            h, _ = L.attn_block(cfg, p["attn"],
+                                L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                                positions=positions, window=0,
+                                cache={"k": cache["k"][i],
+                                       "v": cache["v"][i]},
+                                cache_pos=pos)
+            x = x + h
+            h, _ = L.attn_block(cfg, p["xattn"],
+                                L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                                positions=positions,
+                                cross_kv=(cache["xk"][i], cache["xv"][i]))
+            x = x + h
+            x = x + L.mlp_block(cfg, p["mlp"],
+                                L.rms_norm(x, p["ln3"], cfg.norm_eps))
     else:  # ssm, hybrid
         for i in range(cfg.num_layers):
             x, _ = _mamba_layer(cfg, layer_params(lp, i), x,
@@ -92,28 +116,48 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None):
     """Run the prompt through the backbone, returning (last-token logits,
     cache of ``max_seq`` positions — the prompt length when not given).
 
-    dense: the cache is filled to the prompt length and zero beyond it.
+    dense / moe / vlm: the cache is filled to the prompt length and zero
+    beyond it (vlm: ``batch["patches"]`` take the first positions).
+    encdec: ``batch["frames"]`` through the encoder; ``xk`` / ``xv`` are
+    every layer's projections of its output, and the self-attention
+    cache comes back as ``init_cache`` made it, unfilled, as in the
+    reference: decode steps attend over zero keys at the prompt's
+    positions.
     ssm / hybrid: as in the reference, the full-sequence pass (the SSD
     kernel) keeps no final states, so the cache comes back as
     ``init_cache`` made it, unfilled; ``ServeEngine`` ingests such
     prompts through the recurrence instead.
     """
-    require_ported(cfg, "prefill")
     tokens = batch["tokens"]
     b, s = tokens.shape
     max_seq = max_seq or s
     positions = torch.arange(s, device=tokens.device)
-    x = embed_tokens(cfg, params, tokens)
-    if cfg.family == "dense":
-        x, kvs = _stack_dense(cfg, params["layers"], x, positions,
-                              collect_kv=True)
-    elif cfg.family == "ssm":
-        x, kvs = _stack_ssm(cfg, params["layers"], x, positions)
-    else:  # hybrid
-        x, kvs = _stack_hybrid(cfg, params["layers"], params["shared_attn"],
-                               x, positions)
-    # made after the stack, so that it never sits beside its activations
-    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    kvs = None
+    if cfg.family == "encdec":
+        enc = encode(cfg, params, batch["frames"])
+        lp = params["layers"]
+        cache = init_cache(cfg, b, max_seq, device=tokens.device)
+        cache["xk"] = torch.einsum("bse,lekd->lbskd", enc,
+                                   lp["xattn"]["k"]).contiguous()
+        cache["xv"] = torch.einsum("bse,lekd->lbskd", enc,
+                                   lp["xattn"]["v"]).contiguous()
+        x = embed_tokens(cfg, params, tokens)
+        x = _stack_encdec_decoder(cfg, lp, x, positions, enc)
+    else:
+        if cfg.family in ATTENTION:
+            x = embed_with_patches(cfg, params, batch)
+            x, kvs = _stack_dense(cfg, params["layers"], x, positions,
+                                  collect_kv=True)
+        elif cfg.family == "ssm":
+            x = embed_tokens(cfg, params, tokens)
+            x, kvs = _stack_ssm(cfg, params["layers"], x, positions)
+        else:  # hybrid
+            x = embed_tokens(cfg, params, tokens)
+            x, kvs = _stack_hybrid(cfg, params["layers"],
+                                   params["shared_attn"], x, positions)
+        # made after the stack, so that it never sits beside its
+        # activations
+        cache = init_cache(cfg, b, max_seq, device=tokens.device)
     for i, (k, v) in enumerate(kvs or ()):
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v

@@ -1,7 +1,7 @@
 """Model layers in plain torch (functional; params are nested dicts).
 
-The reference package's ``models/layers.py`` but for the MoE block.
-Attention comes in three implementations selected by cfg.attn_impl:
+The reference package's ``models/layers.py``.  Attention comes in three
+implementations selected by cfg.attn_impl:
 
 - "quadratic": materialises the score matrix — the readable oracle, used
   for small shapes and as the reference for everything else.
@@ -15,19 +15,20 @@ All attention paths support GQA, causal masking, sliding windows and
 gemma-style logit soft-capping.  The Mamba2 block's full-sequence SSD
 goes through the hand-written kernel of :mod:`repro_torch.kernels.ssd`
 (its wrapper runs the plain version on CPU tensors); its decode step is
-the single-token recurrence.  The reference's sharding annotations are
-no-ops on one card and are left out.  The MoE block belongs to a later
-slice of the port.
+the single-token recurrence.  The MoE block is plain torch (its expert
+products are ``torch.einsum``, as the reference computes them outside
+any kernel).  The reference's sharding annotations are no-ops on one
+card and are left out.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
-
-_LATER = "belongs to a later slice of the PyTorch port"
 
 
 # ---------------------------------------------------------------------------
@@ -169,8 +170,8 @@ def attention(cfg, q, k, v, *, q_pos, k_pos, causal=True, window=0, cap=0.0):
 # ---------------------------------------------------------------------------
 
 def attn_block(cfg, p, x, *, positions, window: int = 0, cache=None,
-               cache_pos=None, causal=True):
-    """Self-attention block.
+               cache_pos=None, cross_kv=None, causal=True):
+    """Self- or cross-attention block.
 
     p: {"q","k","v","o"} projection kernels.
     window: sliding-window size (0 = full attention).
@@ -178,29 +179,40 @@ def attn_block(cfg, p, x, *, positions, window: int = 0, cache=None,
         buffers to update at cache_pos and read (decode).  The update is
         IN PLACE: the reference's jitted decode step donates the cache
         buffers, and writing into them here is what that donation buys.
+    cross_kv: (k, v) precomputed encoder projections (B,T,KH,D) for
+        cross-attention: non-causal over all T keys through ``attention``
+        (on the card the kernel, for a decode step's single query too),
+        and neither q nor k is roped, as in the reference.
     Returns (out, new_kv) where new_kv is the (k, v) pair produced by this
-    call (prefill) or the updated cache dict (decode).  Cross-attention
-    (encoder-decoder) belongs to a later slice.
+    call (prefill), the updated cache dict (decode), or None (cross).
     """
     b, s, e = x.shape
     q = torch.einsum("bse,ehd->bshd", x, p["q"])
-    k = torch.einsum("bse,ekd->bskd", x, p["k"])
-    v = torch.einsum("bse,ekd->bskd", x, p["v"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if cache is None:
-        out = attention(cfg, q, k, v, q_pos=positions, k_pos=positions,
-                        causal=causal, window=window, cap=cfg.attn_softcap)
-        new_kv = (k, v)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = attention(cfg, q, k, v, q_pos=positions,
+                        k_pos=torch.arange(k.shape[1], device=x.device),
+                        causal=False, window=0, cap=cfg.attn_softcap)
+        new_kv = None
     else:
-        kc, vc = cache["k"], cache["v"]
-        kc[:, cache_pos:cache_pos + s] = k.to(kc.dtype)
-        vc[:, cache_pos:cache_pos + s] = v.to(vc.dtype)
-        pos_vec = torch.full((b,), cache_pos, dtype=torch.int64,
-                             device=x.device)
-        out = attention_decode(q, kc, vc, pos=pos_vec, window=window,
-                               cap=cfg.attn_softcap)
-        new_kv = {"k": kc, "v": vc}
+        k = torch.einsum("bse,ekd->bskd", x, p["k"])
+        v = torch.einsum("bse,ekd->bskd", x, p["v"])
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if cache is None:
+            out = attention(cfg, q, k, v, q_pos=positions, k_pos=positions,
+                            causal=causal, window=window,
+                            cap=cfg.attn_softcap)
+            new_kv = (k, v)
+        else:
+            kc, vc = cache["k"], cache["v"]
+            kc[:, cache_pos:cache_pos + s] = k.to(kc.dtype)
+            vc[:, cache_pos:cache_pos + s] = v.to(vc.dtype)
+            pos_vec = torch.full((b,), cache_pos, dtype=torch.int64,
+                                 device=x.device)
+            out = attention_decode(q, kc, vc, pos=pos_vec, window=window,
+                                   cap=cfg.attn_softcap)
+            new_kv = {"k": kc, "v": vc}
     out = torch.einsum("bshd,hde->bse", out, p["o"])
     return out, new_kv
 
@@ -217,8 +229,98 @@ def mlp_block(cfg, p, x):
     return torch.einsum("bsf,fe->bse", h, p["wo"])
 
 
+def top_k(gates, k: int):
+    """The ``k`` largest gates and their experts, the lower expert first
+    among equal gates (as ``jax.lax.top_k``; ``torch.topk`` promises no
+    order on ties): a stable descending sort, cut to ``k``."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(cfg, router, x):
+    """The routing of :func:`moe_block`, the reference's grouped capacity
+    dispatch: one group a sequence, ``cap = ceil(tokens * k / E *
+    capacity_factor)`` slots an expert in a group, the (token, choice)
+    pairs taken in stable expert order and those past an expert's
+    capacity dropped.
+
+    router: (E, e) float32, cast to x's dtype as in the reference.
+    Returns (st, sg, slot, keep, cap): for each group's tg * k pairs in
+    dispatch order the token, its renormalised gate (float32), its row
+    of the (E * cap + 1)-row buffer (E * cap, the overflow row, when
+    dropped) and whether it was kept.
+    """
+    b, s, e = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    groups, tg = b, s
+    logits = torch.einsum("gte,Ee->gtE", x.reshape(groups, tg, e),
+                          router.to(x.dtype))
+    gates = torch.softmax(logits.float(), dim=-1)
+    topg, tope = top_k(gates, k)                           # (g, tg, k)
+    topg = topg / torch.clamp(topg.sum(-1, keepdim=True), min=1e-9)
+
+    cap = int(math.ceil(tg * k / E * cfg.capacity_factor))
+    flat_e = tope.reshape(groups, tg * k)
+    flat_t = torch.arange(tg, device=x.device).repeat_interleave(k)[None] \
+        .expand(groups, tg * k)
+    flat_g = topg.reshape(groups, tg * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    st = torch.gather(flat_t, 1, order)
+    sg = torch.gather(flat_g, 1, order)
+    onehot = F.one_hot(se, E)                              # (g, tg*k, E)
+    pos_in_e = torch.gather(torch.cumsum(onehot, dim=1) - onehot, 2,
+                            se[..., None])[..., 0]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, se * cap + pos_in_e, E * cap)  # overflow slot
+    return st, sg, slot, keep, cap
+
+
 def moe_block(cfg, p, x):
-    raise NotImplementedError(f"moe_block {_LATER}")
+    """Top-k token-choice MoE with grouped capacity dispatch
+    (:func:`moe_dispatch`); the experts' products are ``torch.einsum``
+    over every expert's capacity slots.
+
+    p: {"router": (E, e) float32, "wi": (X, e, f), "wg": (X, e, f),
+    "wo": (X, f, e)}.
+    """
+    b, s, e = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    if k > 2:
+        # the combine below adds k terms into zeros in x's dtype; two
+        # terms sum to the same bits in either order, more do not
+        raise ValueError(f"experts_per_tok {k} > 2: the combine's sum "
+                         "would depend on the order of its terms")
+    groups, tg = b, s
+    xt = x.reshape(groups, tg, e)
+    st, sg, slot, keep, cap = moe_dispatch(cfg, p["router"], x)
+    # rows of the (groups * (E*cap + 1), e) buffer; every dropped pair
+    # writes the group's overflow row, so which of them lands there is
+    # left to the scatter (nondeterministic on the card) and harmless:
+    # that row is cut off before the experts run
+    row = torch.arange(groups, device=x.device)[:, None] * (E * cap + 1) \
+        + slot
+    tok = torch.gather(xt, 1, st[..., None].expand(groups, tg * k, e))
+    buf = torch.zeros((groups * (E * cap + 1), e), dtype=x.dtype,
+                      device=x.device)
+    buf[row.reshape(-1)] = tok.reshape(-1, e)
+    buf = buf.view(groups, E * cap + 1, e)[:, :E * cap] \
+        .reshape(groups, E, cap, e)
+    hh = torch.einsum("gEce,Eef->gEcf", buf, p["wi"])
+    gg = torch.einsum("gEce,Eef->gEcf", buf, p["wg"])
+    hh = activation(gg, cfg.act) * hh
+    yy = torch.einsum("gEcf,Efe->gEce", hh, p["wo"]).reshape(
+        groups, E * cap, e)
+    picked = torch.gather(
+        yy, 1, torch.clamp(slot, 0, E * cap - 1)[..., None]
+        .expand(groups, tg * k, e))
+    contrib = torch.where(keep[..., None], sg[..., None] * picked, 0.0)
+    # k <= 2 terms a token into zeros: the same bits in any order
+    out = torch.zeros((groups * tg, e), dtype=x.dtype, device=x.device)
+    out.index_add_(0, (torch.arange(groups, device=x.device)[:, None] * tg
+                       + st).reshape(-1),
+                   contrib.to(x.dtype).reshape(-1, e))
+    return out.reshape(b, s, e)
 
 
 # ---------------------------------------------------------------------------

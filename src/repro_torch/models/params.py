@@ -5,7 +5,7 @@ A model's parameters are declared once as a nested dict of :class:`P`
 specs (shape + logical axis names + init), as in the reference; the
 stacked per-layer tensors keep their leading ``(L, ...)`` axis.  From
 that declaration come :func:`init_params` (random weights on a device,
-drawn from one explicit ``torch.Generator``) and
+drawn leaf by leaf from one explicit ``torch.Generator``) and
 :func:`params_from_numpy` (the reference's weights, checked leaf by leaf
 against the declaration).
 """
@@ -74,27 +74,35 @@ def _std(p: P) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
 
-def init_params(cfg, seed: int = 0, device="cuda") -> dict:
-    """Random parameters of ``cfg`` on ``device``: float32 normal draws
-    from one ``torch.Generator`` seeded with ``seed``, leaf after leaf in
-    sorted key order, cast to each leaf's dtype — so a bfloat16 model is
-    the rounding of the float32 model of the same seed."""
+def draw_leaves(cfg, seed: int = 0, device="cuda"):
+    """``(path, P, float32 tensor)`` for every leaf of ``cfg``'s
+    declaration in sorted key order: normal draws from one
+    ``torch.Generator`` seeded with ``seed`` (the constant leaves take
+    no draw).  One leaf at a time, so a caller that casts each before the
+    next holds at most one leaf in float32."""
     from .transformer import params_spec
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    out: dict = {}
     for path, p in spec_leaves(params_spec(cfg)):
-        dt = DTYPES[p.dtype or cfg.dtype]
         shape = tuple(int(s) for s in p.shape)
         if p.init == "zeros":
-            val = torch.zeros(shape, dtype=dt, device=dev)
+            val = torch.zeros(shape, dtype=torch.float32, device=dev)
         elif p.init == "ones":
-            val = torch.ones(shape, dtype=dt, device=dev)
+            val = torch.ones(shape, dtype=torch.float32, device=dev)
         else:
             val = torch.randn(shape, generator=gen, dtype=torch.float32,
-                              device=dev).mul_(_std(p)).to(dt)
-        _set(out, path, val)
+                              device=dev).mul_(_std(p))
+        yield path, p, val
+
+
+def init_params(cfg, seed: int = 0, device="cuda") -> dict:
+    """Random parameters of ``cfg`` on ``device``: :func:`draw_leaves`,
+    each cast to its leaf's dtype — so a bfloat16 model is the rounding
+    of the float32 model of the same seed."""
+    out: dict = {}
+    for path, p, val in draw_leaves(cfg, seed, device):
+        _set(out, path, val.to(DTYPES[p.dtype or cfg.dtype]))
     return out
 
 

@@ -1,12 +1,12 @@
-"""Model assembly: parameter declarations and the forward pass of the
-dense, ssm (mamba2) and hybrid (zamba2) families.
+"""Model assembly: parameter declarations and the forward pass of every
+family: dense | moe | ssm (mamba2) | hybrid (zamba2) | encdec (whisper) |
+vlm (internvl).
 
 The reference scans its stacked layers with ``lax.scan`` and dispatches
 gemma's local / global layers and zamba's shared-attention sites with
 ``lax.cond`` on a per-layer flag; here the scan is a Python loop over
 the stacked tensors and the ``cond`` an ``if`` on the same flag.  The
-other families (moe, encdec, vlm), the loss and training belong to later
-slices of the port and raise ``NotImplementedError``.
+loss and training belong to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -17,18 +17,6 @@ import torch
 from . import layers as L
 from .config import ModelConfig
 from .params import DTYPES, P
-
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-def require_ported(cfg: ModelConfig, what: str) -> None:
-    """Raise for the families still unported: moe, encdec and vlm."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{what} for the {cfg.family!r} family ({cfg.name}) belongs to "
-            "a later slice of the PyTorch port; this one serves the "
-            f"{', '.join(PORTED_FAMILIES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +43,17 @@ def _mlp_spec(cfg: ModelConfig, nl: int):
         "wi": P(pre + (e, f), lax_ + ("embed", "mlp")),
         "wg": P(pre + (e, f), lax_ + ("embed", "mlp")),
         "wo": P(pre + (f, e), lax_ + ("mlp", "embed")),
+    }
+
+
+def _moe_spec(cfg: ModelConfig, nl: int):
+    e, f, x = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": P((nl, x, e), ("layers", "experts", "embed"),
+                    dtype="float32"),
+        "wi": P((nl, x, e, f), ("layers", "experts", "embed", "mlp")),
+        "wg": P((nl, x, e, f), ("layers", "experts", "embed", "mlp")),
+        "wo": P((nl, x, f, e), ("layers", "experts", "mlp", "embed")),
     }
 
 
@@ -88,20 +87,38 @@ def _norm(nl: int, e: int):
 
 
 def params_spec(cfg: ModelConfig) -> dict:
-    require_ported(cfg, "params_spec")
     e, v, nl = cfg.d_model, cfg.vocab_size, cfg.num_layers
     spec: dict = {"tok_embed": P((v, e), ("vocab", "embed"), init="embed")}
-    if cfg.family == "dense":
-        spec["layers"] = {"ln1": _norm(nl, e), "ln2": _norm(nl, e),
-                          "attn": _attn_spec(cfg, nl),
-                          "mlp": _mlp_spec(cfg, nl)}
-    else:  # ssm, hybrid
+    if cfg.family in ("dense", "moe", "vlm"):
+        blk = {"ln1": _norm(nl, e), "ln2": _norm(nl, e),
+               "attn": _attn_spec(cfg, nl)}
+        if cfg.family == "moe":
+            blk["moe"] = _moe_spec(cfg, nl)
+        else:
+            blk["mlp"] = _mlp_spec(cfg, nl)
+        spec["layers"] = blk
+    elif cfg.family in ("ssm", "hybrid"):
         spec["layers"] = {"ln1": _norm(nl, e),
                           "mamba": _mamba_spec(cfg, nl)}
-    if cfg.family == "hybrid":  # one shared block, unstacked
-        spec["shared_attn"] = {
-            "ln1": _norm(0, e), "ln2": _norm(0, e),
-            "attn": _attn_spec(cfg, 0), "mlp": _mlp_spec(cfg, 0)}
+        if cfg.family == "hybrid":  # one shared block, unstacked
+            spec["shared_attn"] = {
+                "ln1": _norm(0, e), "ln2": _norm(0, e),
+                "attn": _attn_spec(cfg, 0), "mlp": _mlp_spec(cfg, 0)}
+    elif cfg.family == "encdec":
+        ne = cfg.encoder_layers
+        spec["encoder"] = {"ln1": _norm(ne, e), "ln2": _norm(ne, e),
+                           "attn": _attn_spec(cfg, ne),
+                           "mlp": _mlp_spec(cfg, ne)}
+        spec["layers"] = {"ln1": _norm(nl, e), "ln2": _norm(nl, e),
+                          "ln3": _norm(nl, e), "attn": _attn_spec(cfg, nl),
+                          "xattn": _attn_spec(cfg, nl),
+                          "mlp": _mlp_spec(cfg, nl)}
+        spec["enc_final_norm"] = _norm(0, e)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.frontend:
+        spec["frontend_proj"] = P((cfg.frontend_dim, e),
+                                  ("frontend", "embed"))
     spec["final_norm"] = _norm(0, e)
     if not cfg.tie_embeddings:
         spec["unembed"] = P((e, v), ("embed", "vocab"))
@@ -119,7 +136,10 @@ def _dense_block(cfg, p, x, positions, window, *, cache=None, cache_pos=None):
                          cache=cache, cache_pos=cache_pos)
     x = x + h
     inner = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + L.mlp_block(cfg, p["mlp"], inner)
+    if "moe" in p:
+        x = x + L.moe_block(cfg, p["moe"], inner)
+    else:
+        x = x + L.mlp_block(cfg, p["mlp"], inner)
     return x, kv
 
 
@@ -193,13 +213,69 @@ def _stack_hybrid(cfg, lp, shared, x, positions, *, collect_kv=False):
     return x, [kv or zero for kv in kvs]
 
 
+def _stack_encoder(cfg, lp, x):
+    """The encoder: non-causal self-attention (roped over the frame
+    positions) and the MLP, ``cfg.encoder_layers`` times."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        p = layer_params(lp, i)
+        h, _ = L.attn_block(cfg, p["attn"],
+                            L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                            positions=positions, window=0, causal=False)
+        x = x + h
+        x = x + L.mlp_block(cfg, p["mlp"],
+                            L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x
+
+
+def _stack_encdec_decoder(cfg, lp, x, positions, enc_out):
+    """The decoder: causal self-attention, cross-attention over the
+    encoder output (each layer projects its own k / v), the MLP."""
+    for i in range(cfg.num_layers):
+        p = layer_params(lp, i)
+        h, _ = L.attn_block(cfg, p["attn"],
+                            L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                            positions=positions, window=0)
+        x = x + h
+        xk = torch.einsum("bse,ekd->bskd", enc_out, p["xattn"]["k"])
+        xv = torch.einsum("bse,ekd->bskd", enc_out, p["xattn"]["v"])
+        h, _ = L.attn_block(cfg, p["xattn"],
+                            L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                            positions=positions, cross_kv=(xk, xv))
+        x = x + h
+        x = x + L.mlp_block(cfg, p["mlp"],
+                            L.rms_norm(x, p["ln3"], cfg.norm_eps))
+    return x
+
+
 # ---------------------------------------------------------------------------
-# Embedding / logits
+# Embedding / logits / frontends
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens):
     x = params["tok_embed"][tokens] * (cfg.d_model ** 0.5)
     return x.to(DTYPES[cfg.dtype])
+
+
+def embed_with_patches(cfg, params, batch):
+    """Token embeddings; for vlm the first ``patches.shape[1]`` positions
+    are the projected patch embeddings instead."""
+    x = embed_tokens(cfg, params, batch["tokens"])
+    if cfg.family == "vlm":
+        patches = torch.einsum("bpf,fe->bpe",
+                               batch["patches"].to(DTYPES[cfg.dtype]),
+                               params["frontend_proj"])
+        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+    return x
+
+
+def encode(cfg, params, frames):
+    """The encdec encoder's output, normed: frames (B, T, frontend_dim)
+    projected, through the encoder stack and ``enc_final_norm``."""
+    enc_in = torch.einsum("btf,fe->bte", frames.to(DTYPES[cfg.dtype]),
+                          params["frontend_proj"])
+    enc = _stack_encoder(cfg, params["encoder"], enc_in)
+    return L.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
 
 
 def unembed(cfg, params, x):
@@ -215,15 +291,20 @@ def unembed(cfg, params, x):
 
 def forward_hidden(cfg: ModelConfig, params, batch):
     """Run the backbone to final hidden states (no unembedding)."""
-    require_ported(cfg, "forward_hidden")
     tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    if cfg.family == "dense":
+    if cfg.family == "encdec":
+        enc = encode(cfg, params, batch["frames"])
+        x = embed_tokens(cfg, params, tokens)
+        x = _stack_encdec_decoder(cfg, params["layers"], x, positions, enc)
+    elif cfg.family in ("dense", "moe", "vlm"):
+        x = embed_with_patches(cfg, params, batch)
         x, _ = _stack_dense(cfg, params["layers"], x, positions)
     elif cfg.family == "ssm":
+        x = embed_tokens(cfg, params, tokens)
         x, _ = _stack_ssm(cfg, params["layers"], x, positions)
     else:  # hybrid
+        x = embed_tokens(cfg, params, tokens)
         x, _ = _stack_hybrid(cfg, params["layers"], params["shared_attn"],
                              x, positions)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -12,7 +12,7 @@
   fails at run time (fault injection lives in :mod:`repro_torch.faults`).
 - :mod:`repro_torch.serve.decode` — the token-decode model server
   (:class:`ServeEngine`, prompt ingestion + greedy decode over a KV or
-  SSM cache; the dense, ssm and hybrid families).
+  SSM cache; every family of the model zoo).
 """
 
 from .cache import LRUCache

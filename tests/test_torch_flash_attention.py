@@ -6,7 +6,8 @@ CPU tensors ``repro_torch``'s wrapper runs its plain version (the CUDA
 kernel is held against that plain version on the card by
 ``chip_smoke.py``), so these tests pin the semantics both must have:
 GQA, causal masks, sliding windows that cut through a tile, soft-capped
-logits, ragged sequence lengths.  Tolerances are those of
+logits, ragged sequence lengths, non-causal keys the reference would
+pad (which only the port takes).  Tolerances are those of
 ``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.
 """
 
@@ -17,6 +18,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash
 from repro.kernels.flash_attention.ref import attention_ref as ref_oracle
+from repro.models import layers as RL
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
@@ -100,14 +102,28 @@ def test_flash_noncausal_and_its_refusal():
     want = ref_flash(qj, kj, vj, causal=False, bq=32, bk=32, interpret=True)
     got = ops.flash_attention(qt, kt, vt, causal=False)
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
-    # at the reference's default blocks (512) both refuse non-causal key
-    # padding, with the same message
+    # at its default blocks (512) the reference refuses non-causal keys
+    # it would pad; the port pads nothing (the kernel masks keys >= T)
+    # and computes the reference's attention function there
     (qj, kj, vj), (qt, kt, vt) = _mk(7, 1, 520, 1, 1, 16)
-    with pytest.raises(ValueError, match="key padding requires causal") as e:
+    with pytest.raises(ValueError, match="key padding requires causal"):
         ref_flash(qj, kj, vj, causal=False, interpret=True)
-    with pytest.raises(ValueError, match="key padding requires causal") as f:
-        ops.flash_attention(qt, kt, vt, causal=False)
-    assert str(e.value) == str(f.value)
+    got = ops.flash_attention(qt, kt, vt, causal=False)
+    pos = jnp.arange(520)
+    want = RL.attention_quadratic(qj, kj, vj, q_pos=pos, k_pos=pos,
+                                  causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    # whisper's decode-step cross-attention: one query over T = 1500
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.standard_normal(shape, dtype=np.float32) for shape in (
+        (2, 1, 4, 16), (2, 1500, 4, 16), (2, 1500, 4, 16)))
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=False)
+    want = RL.attention_quadratic(*map(jnp.asarray, (q, k, v)),
+                                  q_pos=jnp.arange(1),
+                                  k_pos=jnp.arange(1500), causal=False)
+    assert got.shape == (2, 1, 4, 16)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -5,7 +5,10 @@ the same values to both packages (``params_from_numpy`` carries the
 tree across), at float32 and reduced size, for four dense
 configurations: yi-6b (GQA), minitron-4b, gemma2-27b (window 16 on
 alternate layers, attention and final soft-caps, tanh gelu) and
-gemma3-27b (5 local : 1 global).  The weights use one layer's fan-in, so
+gemma3-27b (5 local : 1 global); and the vlm internvl2-26b, the dense
+stack behind a prefix of projected patch embeddings (numpy patches,
+``extras={"patches": ...}`` when served).  The moe and encdec families
+are in ``test_torch_moe.py`` and ``test_torch_encdec.py``.  The weights use one layer's fan-in, so
 that every block moves the residual stream and the attention shows in
 the logits.  Tolerances are stated per test; float32 throughout.
 """
@@ -39,8 +42,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.serve import ServeEngine
 
 DENSE = ("yi_6b", "minitron_4b", "gemma2_27b", "gemma3_27b")
+VLM = ("internvl2_26b",)
 SSM = ("mamba2_2p7b", "zamba2_1p2b")    # tests/test_torch_ssm.py
-OTHERS = tuple(a for a in ARCHS if a not in DENSE + SSM)
 ATOL = RTOL = 1e-5     # one layer / one function, float32
 MODEL_ATOL = 1e-4      # whole model (logits of order 10), float32
 
@@ -70,8 +73,13 @@ def _numpy_params(ref_cfg, seed=0):
     return jax.tree.unflatten(treedef, out)
 
 
-def _both(name, impl="xla_flash", seed=0):
+def _both(name, impl="xla_flash", seed=0, port_impl=None):
+    """(reference cfg, its params, port cfg, its params) holding the same
+    values; the port's ``attn_impl`` is the translated ``impl`` unless
+    ``port_impl`` names another."""
     ref_cfg, cfg = _cfgs(name, impl)
+    if port_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=port_impl)
     tree = _numpy_params(ref_cfg, seed)
     return (ref_cfg, jax.tree.map(jnp.asarray, tree),
             cfg, params_from_numpy(tree, cfg, device="cpu"))
@@ -80,6 +88,27 @@ def _both(name, impl="xla_flash", seed=0):
 def _tokens(cfg, b=2, s=40, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                 size=(b, s))
+
+
+def _extras(cfg, b=2, seed=2):
+    """The frontend inputs ``cfg``'s family takes beside the tokens, as
+    numpy: ``patches`` (vlm), ``frames`` (encdec), none otherwise."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        shape, key = (b, cfg.num_patches, cfg.frontend_dim), "patches"
+    elif cfg.family == "encdec":
+        shape, key = (b, cfg.encoder_seq, cfg.frontend_dim), "frames"
+    else:
+        return {}
+    return {key: rng.standard_normal(shape).astype(np.float32)}
+
+
+def _batches(toks, extras):
+    """The reference's batch and the port's, holding the same values."""
+    return ({"tokens": jnp.asarray(toks),
+             **{k: jnp.asarray(v) for k, v in extras.items()}},
+            {"tokens": torch.from_numpy(toks),
+             **{k: torch.from_numpy(v) for k, v in extras.items()}})
 
 
 def _close(got, want, atol=ATOL, rtol=RTOL):
@@ -228,24 +257,24 @@ def test_attn_block_and_mlp_block(name):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("impl", ["pallas", "xla_flash"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + VLM)
 def test_logits_fn(name, impl):
     ref_cfg, rp, cfg, tp = _both(name, impl)
     toks = _tokens(cfg, s=300)  # > 256: xla_flash runs chunked
-    want = RT.logits_fn(ref_cfg, rp, {"tokens": jnp.asarray(toks)})
-    got = logits_fn(cfg, tp, {"tokens": torch.from_numpy(toks)})
+    rb, tb = _batches(toks, _extras(cfg))
+    want = RT.logits_fn(ref_cfg, rp, rb)
+    got = logits_fn(cfg, tp, tb)
     assert got.shape == (2, 300, cfg.vocab_size)
     _close(got, want, atol=MODEL_ATOL)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + VLM)
 def test_prefill_and_decode_step(name):
     ref_cfg, rp, cfg, tp = _both(name, "pallas")
     toks = _tokens(cfg, s=40)
-    rlog, rcache = RD.prefill(ref_cfg, rp, {"tokens": jnp.asarray(toks)},
-                              max_seq=48)
-    tlog, tcache = prefill(cfg, tp, {"tokens": torch.from_numpy(toks)},
-                           max_seq=48)
+    rb, tb = _batches(toks, _extras(cfg))
+    rlog, rcache = RD.prefill(ref_cfg, rp, rb, max_seq=48)
+    tlog, tcache = prefill(cfg, tp, tb, max_seq=48)
     _close(tlog, rlog, atol=MODEL_ATOL)
     assert set(tcache) == {"k", "v"}
     for key in ("k", "v"):
@@ -267,15 +296,16 @@ def test_prefill_and_decode_step(name):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla_flash"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + VLM)
 def test_serve_engine_generates_the_reference_tokens(name, impl):
     ref_cfg, rp, cfg, tp = _both(name, impl)
     toks = _tokens(cfg, s=40)
+    extras = _extras(cfg) or None
     want = RefServeEngine(ref_cfg, rp, max_seq=48, batch=2).generate(
-        toks, max_new_tokens=8)
+        toks, max_new_tokens=8, extras=extras)
     n0 = fa_ops.launch_count
     got = ServeEngine(cfg, tp, max_seq=48, batch=2, device="cpu").generate(
-        toks, max_new_tokens=8)
+        toks, max_new_tokens=8, extras=extras)
     assert fa_ops.launch_count == n0   # CPU tensors: the plain version
     assert got.dtype == np.int32 and got.shape == (2, 8)
     np.testing.assert_array_equal(got, want)
@@ -367,7 +397,7 @@ def test_init_params_is_seeded_and_follows_the_spec():
             assert not torch.equal(ta, tc)
 
 
-@pytest.mark.parametrize("name", DENSE + SSM)
+@pytest.mark.parametrize("name", ARCHS)
 def test_init_params_draws_the_reference_scale(name):
     """Leaf by leaf as the reference's ``tree_init``: the same constant
     leaves, and normal draws whose spread is the reference's (the fan-in
@@ -397,26 +427,22 @@ def _get(tree, path):
 
 
 # ---------------------------------------------------------------------------
-# what this slice does not serve, and the device rule
+# every family served, and the device rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", OTHERS)
-def test_other_families_raise(name):
+@pytest.mark.parametrize("name", ARCHS)
+def test_serve_engine_serves_every_family(name):
+    """Random weights of every config's reduced form, served on the CPU
+    with its family's inputs: tokens in the vocabulary, one a new
+    position."""
     cfg = reduced(get_config(name), dtype="float32")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        params_spec(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServeEngine(cfg, {}, max_seq=8, batch=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        prefill(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-
-
-def test_unported_blocks_raise():
-    cfg = reduced(get_config("mixtral_8x22b"), dtype="float32")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TL.moe_block(cfg, {}, None)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = _tokens(cfg, s=12)
+    got = ServeEngine(cfg, params, max_seq=16, batch=2,
+                      device="cpu").generate(
+        toks, max_new_tokens=3, extras=_extras(cfg) or None)
+    assert got.shape == (2, 3) and got.dtype == np.int32
+    assert ((got >= 0) & (got < cfg.vocab_size)).all()
 
 
 def test_cuda_device_without_gpu_raises():
