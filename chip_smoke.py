@@ -156,13 +156,38 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    48 times a ``generate``.
    Each of 9-11 prints ``prefill_s``, ``decode_ms_per_token``,
    ``peak_mem_gib``, the K2 launches and its wall time.
+12. ``train`` — training on the card.  K2 at yi-6b's training attention
+   (B=4, S=T=2048, H=32, KH=4, D=128, causal) and K3 at mamba2-2.7b's
+   scan (B=4, L=2048, H=80, P=64, N=128, chunk 128), float32 and
+   bfloat16, as autograd Functions: the forward within ``ATTN_TOL`` /
+   ``SSD_TOL`` of the plain version, one launch, none in the backward;
+   every gradient bit for bit autograd's of the function the reference
+   differentiates (``attention_xla_flash``, the chunked
+   ``ssd_reference``) where that function's own rerun gives the same
+   bits; forward + backward timed beside the plain forward + backward.
+   Then yi-6b and mamba2-2.7b at full width, 4 of their 32 / 64 layers,
+   ``remat="full"``, ``loss_chunk=2048``, float32 and bfloat16, from
+   ``init_params(seed=0)``: step 0's loss and every gradient leaf
+   against the plain path (``attn_impl="xla_flash"``; the chunked scan
+   in place of K3) within ``TRAIN_GRAD_TOL`` of the leaf's max |g|, a
+   rerun of step 0 with the same loss bits (the leaves whose gradient
+   bits differ between reruns are listed), then 5 steps of
+   ``make_train_step`` on ``SyntheticLM`` batches of 4 x 2048: losses
+   finite, the kernel 8 times a step (forward and recompute of 4
+   layers), nothing else launched; ``step_ms``, ``tokens_per_s``,
+   ``peak_mem_gib`` (with ``--profile`` one more step's device time by
+   class and idle share).  Last, on a small dense model:
+   ``train_with_restarts`` failing at step 7 ends within 1e-5 of the
+   uninterrupted run (bit-equality reported), and a bfloat16 checkpoint
+   saved and restored is bit-equal.
 
 With ``--profile`` more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
 of one mapscore launch at the largest shape, one more cold request
 (the fused path), one cold ``minighost-xk7_sparse-node-latency`` request,
-and of one bfloat16 prefill and one decode step of yi-6b, mamba2-2.7b,
-mixtral-8x22b (4 layers) and whisper-small.
+of one bfloat16 prefill and one decode step of yi-6b, mamba2-2.7b,
+mixtral-8x22b (4 layers) and whisper-small, and of one training step of
+each model of phase ``train``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script then
@@ -1567,6 +1592,380 @@ def family_phases(profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 2048, 5
+# the kernels' gradients at the training shapes: K2 at yi-6b's attention
+# (B, S = T, H, KH, D; causal), K3 at mamba2-2.7b's scan (B, L, H, P, N,
+# chunk)
+TRAIN_ATTN = ("yi-6b-train", 4, 2048, 32, 4, 128)
+TRAIN_SSD = ("mamba2-2.7b-train", 4, 2048, 80, 64, 128, 128)
+# step 0's gradients through the kernels' forward against those of the
+# plain path (attn_impl="xla_flash"; the chunked SSD scan), per leaf as
+# a fraction of that leaf's max |g|, and step 0's loss, relative.
+# float32: the same function with sums in another order — the CPU tests
+# allow 1e-4 (1.6e-6 measured at reduced size), and so does this: the
+# H100 gave 1.6e-6 (yi-6b) and 1.2e-5 (mamba2-2.7b's A_log), PERF.md.
+# bfloat16: the kernels round P (K2) and the scan's output once where the
+# plain path rounds elsewhere, ~1 bf16 ulp of a layer's output carried
+# back through every layer: 6.3e-3 and 7.0e-3 on the H100; the limit
+# is the bfloat16 logits' of the model phases, 3e-2.
+TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# a small dense model for the restart and checkpoint checks (head dim
+# 32: the kernel's)
+TRAIN_SMALL = dict(name="train-smoke", family="dense", num_layers=2,
+                   d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
+                   vocab_size=512, head_dim=32, dtype="float32",
+                   loss_chunk=0)
+TRAIN_SMALL_SHAPE = (128, 4)     # seq_len, global_batch
+
+
+def grad_compare(name, got, want, again, tol) -> dict:
+    """Kernel-path gradients ``got`` against the plain function's
+    ``want``: bit for bit where the plain path gives the same bits on a
+    rerun (``again``), else within ``tol`` of the leaf's max |g|."""
+    import torch
+    out = {}
+    for key, g, w, w2 in zip(got, got.values(), want.values(),
+                             again.values()):
+        same = torch.equal(w, w2)
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        out[key] = {"plain_rerun_bit_identical": same,
+                    "bit_identical": torch.equal(g, w),
+                    "max_abs_err": err, "max_abs_grad": scale}
+        check(bool(torch.isfinite(g).all()), f"{name}: d{key} not finite")
+        if same:
+            check(torch.equal(g, w), f"{name}: d{key} differs from autograd "
+                  f"of the plain function (max abs err {err})")
+        else:
+            check(err <= tol * scale, f"{name}: d{key} {err} from the "
+                  f"plain function's, whose reruns differ (limit "
+                  f"{tol} x {scale})")
+    return out
+
+
+def kernel_grad_cases() -> list:
+    """K2 and K3 as ``torch.autograd.Function``s at the training shapes,
+    float32 and bfloat16: the forward within ``ATTN_TOL`` / ``SSD_TOL``
+    of the plain version, the gradients bit for bit autograd's of the
+    function the reference differentiates (``attention_xla_flash``, the
+    chunked ``ssd_reference``), forward + backward timed beside the plain
+    forward + backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    out = []
+    name, b, s, h, kh, d = TRAIN_ATTN
+    pos = torch.arange(s, device="cuda")
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        xs = [x.requires_grad_()
+              for x in attention_inputs(b, s, h, kh, d, dtype, 100 + i)]
+        g = torch.randn((b, s, h, d), device="cuda").to(xs[0].dtype)
+
+        def plain_grads():
+            ys = [x.detach().clone().requires_grad_() for x in xs]
+            o = fa_ref.attention_xla_flash(*ys, q_pos=pos, k_pos=pos)
+            return o, torch.autograd.grad(o, ys, g)
+
+        n0 = fa_ops.launch_count
+        o = fa_ops.flash_attention(*xs)
+        check(o.grad_fn is not None, f"{name}: no grad_fn on the output")
+        got = torch.autograd.grad(o, xs, g)
+        check(fa_ops.launch_count == n0 + 1,
+              f"{name}: one forward launch expected, the backward none")
+        with torch.no_grad():
+            ref_out = fa_ref.attention_ref(
+                *(x.transpose(1, 2) for x in xs)).transpose(1, 2)
+        atol, rtol = ATTN_TOL[dtype]
+        o_f, ref_f = o.detach().float(), ref_out.float()
+        err = float((o_f - ref_f).abs().max())
+        check(torch.allclose(o_f, ref_f, atol=atol, rtol=rtol),
+              f"{name}/{dtype}: forward {err}")
+        plain_out, want = plain_grads()
+        _, again = plain_grads()
+        rec = {"case": name, "kernel": "flash_attention", "dtype": dtype,
+               "shape": [b, s, h, kh, d], "max_abs_err": err,
+               "grads": grad_compare(f"{name}/{dtype}", dict(zip("qkv", got)),
+                                     dict(zip("qkv", want)),
+                                     dict(zip("qkv", again)),
+                                     TRAIN_GRAD_TOL[dtype])}
+        del o, o_f, ref_f, got, want, again, plain_out, ref_out
+        rec["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            fa_ops.flash_attention(*xs), xs, g), 5)
+        rec["plain_fwd_bwd_ms"] = cuda_ms(plain_grads, 3, 1)
+        rec["fwd_ms"] = cuda_ms(lambda: fa_ops.flash_attention(
+            *(x.detach() for x in xs)), 5)
+        out.append(rec)
+        emit("train", part="kernel_grads", **rec)
+        del xs, g
+        torch.cuda.empty_cache()
+
+    name, b, l, h, p, n, chunk = TRAIN_SSD
+    for i, dtype in enumerate(("float32", "bfloat16")):
+        xs = [x.requires_grad_() for x in ssd_inputs(
+            b, l, h, p, n, dtype, None, False, 200 + i)]
+        g = torch.randn((b, l, h, p), device="cuda").to(xs[0].dtype)
+
+        def plain_grads():
+            ys = [x.detach().clone().requires_grad_() for x in xs]
+            y, _ = ssd_ref.ssd_reference(*ys, chunk=chunk)
+            return y, torch.autograd.grad(y, ys, g)
+
+        n0 = ssd_ops.launch_count
+        y = ssd_ops.ssd(*xs, chunk=chunk)
+        check(y.grad_fn is not None, f"{name}: no grad_fn on the output")
+        got = torch.autograd.grad(y, xs, g)
+        check(ssd_ops.launch_count == n0 + 1,
+              f"{name}: one forward launch expected, the backward none")
+        with torch.no_grad():
+            want_y = ssd_ref.ssd_model_ref(*xs)
+        a_frac, rtol = SSD_TOL[dtype]
+        y_f, want_f = y.detach().float(), want_y.float()
+        scale = float(want_f.abs().max())
+        err = float((y_f - want_f).abs().max())
+        check(torch.allclose(y_f, want_f, atol=a_frac * scale, rtol=rtol),
+              f"{name}/{dtype}: forward {err}")
+        _, want = plain_grads()
+        _, again = plain_grads()
+        keys = ("x", "dt", "A", "B", "C")
+        rec = {"case": name, "kernel": "ssd", "dtype": dtype,
+               "shape": [b, l, h, p, n], "chunk": chunk,
+               "max_abs_err": err,
+               "grads": grad_compare(f"{name}/{dtype}", dict(zip(keys, got)),
+                                     dict(zip(keys, want)),
+                                     dict(zip(keys, again)),
+                                     TRAIN_GRAD_TOL[dtype])}
+        del y, y_f, want_f, got, want, again, want_y
+        rec["fwd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            ssd_ops.ssd(*xs, chunk=chunk), xs, g), 5)
+        rec["plain_fwd_bwd_ms"] = cuda_ms(plain_grads, 3, 1)
+        rec["fwd_ms"] = cuda_ms(lambda: ssd_ops.ssd(
+            *(x.detach() for x in xs), chunk=chunk), 5)
+        out.append(rec)
+        emit("train", part="kernel_grads", **rec)
+        del xs, g
+        torch.cuda.empty_cache()
+    return out
+
+
+class plain_ssd_path:
+    """Within the block the Mamba2 block's scan is the plain chunked
+    ``ssd_reference`` instead of the kernel: the plain path that phase
+    ``train`` holds mamba2's step against (its config has no switch)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd import ops, ref
+        self.ops, self.kernel = ops, ops.ssd
+
+        def plain(x, dt, A, B, C, *, chunk=128):
+            return ref.ssd_reference(x, dt, A, B, C,
+                                     chunk=min(chunk, x.shape[1]))[0]
+        ops.ssd = plain
+
+    def __exit__(self, *exc):
+        self.ops.ssd = self.kernel
+
+
+def leaf_report(got, want, tol, what) -> dict:
+    """Per gradient leaf |got - want| as a fraction of max |want|,
+    checked against ``tol``; returns the worst leaf and the count."""
+    import torch
+    from repro_torch.train.tree import tree_items
+    worst, worst_key = 0.0, None
+    for (path, g), (_, w) in zip(tree_items(got), tree_items(want)):
+        check(bool(torch.isfinite(g).all()), f"{what}: {path} not finite")
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_key = err, "/".join(path)
+    check(worst <= tol, f"{what}: leaf {worst_key} {worst} of its max |g| "
+          f"(limit {tol})")
+    return {"worst_scaled_err": worst, "worst_leaf": worst_key}
+
+
+def train_model(name: str, dtype: str, profile: bool) -> dict:
+    """``TRAIN_STEPS`` steps of ``make_train_step`` on ``name`` at full
+    width, ``TRAIN_LAYERS`` layers, ``remat="full"``, batches of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from ``SyntheticLM``, from
+    ``init_params(seed=0)``; before them step 0's loss and gradients
+    (kernel path) against the plain path's and against a rerun."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params, params_spec
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.step import make_train_step, value_and_grad
+    from repro_torch.train.tree import tree_items
+    base = get_config(name)
+    cfg = dataclasses.replace(base, num_layers=TRAIN_LAYERS, dtype=dtype,
+                              remat="full", loss_chunk=2048)
+    check(cfg.attn_impl == "hopper", f"{name}: not through the kernel")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    params = init_params(cfg, 0, "cuda")
+    rec = {"model": name, "dtype": dtype, "layers": cfg.num_layers,
+           "of_layers": base.num_layers, "d_model": cfg.d_model,
+           "params": count_params(params_spec(cfg)), "remat": cfg.remat,
+           "loss_chunk": cfg.loss_chunk, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "grad_tol": TRAIN_GRAD_TOL[dtype]}
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.np_batch(0).items()}
+    loss0, g0 = value_and_grad(cfg, params, batch)
+    loss1, g1 = value_and_grad(cfg, params, batch)
+    check(bool(torch.isfinite(loss0)), f"{name}/{dtype}: step 0 loss")
+    check(torch.equal(loss0, loss1),
+          f"{name}/{dtype}: a rerun of step 0 gives another loss")
+    rec["step0_loss"] = float(loss0)
+    rec["step0_rerun_bit_identical_leaves"] = [
+        "/".join(p) for (p, a), (_, b) in zip(tree_items(g0), tree_items(g1))
+        if torch.equal(a, b)]
+    rec["step0_rerun_differing_leaves"] = [
+        "/".join(p) for (p, a), (_, b) in zip(tree_items(g0), tree_items(g1))
+        if not torch.equal(a, b)]
+    del g1
+    if cfg.family == "ssm":
+        with plain_ssd_path():
+            loss_p, g_p = value_and_grad(cfg, params, batch)
+        rec["plain_path"] = "ssd_reference (chunked), no kernel"
+    else:
+        loss_p, g_p = value_and_grad(
+            dataclasses.replace(cfg, attn_impl="xla_flash"), params, batch)
+        rec["plain_path"] = "attn_impl=xla_flash, no kernel"
+    rec["step0_plain_loss"] = float(loss_p)
+    rec["step0_loss_rel_err"] = abs(float(loss0) - float(loss_p)) / abs(
+        float(loss_p))
+    rec["step0_grads_vs_plain"] = leaf_report(
+        g0, g_p, TRAIN_GRAD_TOL[dtype], f"{name}/{dtype} step 0")
+    check(rec["step0_loss_rel_err"] <= TRAIN_GRAD_TOL[dtype],
+          f"{name}/{dtype}: step 0 loss {rec['step0_loss_rel_err']} from "
+          "the plain path's")
+    del g0, g_p, batch
+    torch.cuda.empty_cache()
+
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    state = init_state(opt, params)
+    step_fn = make_train_step(cfg, opt)
+    batches = [data.np_batch(s) for s in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_counts(reset=True)
+    losses, step_s = [], []
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batches[s])
+        losses.append(float(metrics["loss"]))     # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}/{dtype}: non-finite loss {losses}")
+    check(losses[0] == rec["step0_loss"],
+          f"{name}/{dtype}: the step's loss is not step 0's")
+    kernel = "ssd" if cfg.family == "ssm" else "flash_attention"
+    per_step = 2 * cfg.num_layers   # remat: the forward and its recompute
+    check(launches[kernel] == per_step * TRAIN_STEPS,
+          f"{name}/{dtype}: {launches[kernel]} {kernel} launches in "
+          f"{TRAIN_STEPS} steps, expected {per_step} a step")
+    check(sum(launches.values()) == launches[kernel],
+          f"{name}/{dtype}: another kernel launched: {launches}")
+    steady = statistics.median(step_s[1:])
+    rec.update(losses=losses, step_s=step_s, step_ms=steady * 1e3,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / steady,
+               peak_mem_gib=peak / 2 ** 30, launches=launches,
+               launches_per_step={kernel: launches[kernel] / TRAIN_STEPS},
+               final_grad_norm=float(metrics["grad_norm"]))
+    if profile:
+        batch = data.np_batch(TRAIN_STEPS)
+        prof = device_profile(lambda: step_fn(params, state, batch))
+        rec["profile"] = by_class(prof)
+    emit("train", part="model", **rec)
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_restarts() -> dict:
+    """A small dense model on the card: ``train_with_restarts`` failing at
+    step 7 and resuming from its step-4 checkpoint against the
+    uninterrupted run (within 1e-5; bit-equality reported), and a
+    bfloat16 checkpoint saved and restored bit for bit."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.models import ModelConfig, init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.driver import (JobConfig, train,
+                                          train_with_restarts)
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.tree import tree_items
+    cfg = ModelConfig(**TRAIN_SMALL)
+    shape = ShapeConfig("train-smoke", "train", *TRAIN_SMALL_SHAPE)
+    opt = OptConfig(lr=1e-2, warmup_steps=2, total_steps=12,
+                    weight_decay=0.0)
+    root = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    logs = []
+    job = JobConfig(steps=12, ckpt_dir=os.path.join(root, "restart"),
+                    ckpt_every=4, log_every=0, fail_at_step=7)
+    h1 = train_with_restarts(cfg, opt, job, shape=shape, log=logs.append)
+    h2 = train(cfg, opt, JobConfig(steps=12, log_every=0), shape=shape,
+               log=logs.append)
+    gap = abs(h1["loss"][-1] - h2["loss"][-1])
+    rec = {"config": TRAIN_SMALL, "shape": TRAIN_SMALL_SHAPE,
+           "resumed": [x for x in logs if "resumed" in x],
+           "final_loss": h1["loss"][-1], "uninterrupted_final_loss":
+               h2["loss"][-1], "abs_gap": gap,
+           "bit_equal": h1["loss"][-1] == h2["loss"][-1],
+           "params_bit_equal": all(
+               torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_items(h1["params"]), tree_items(h2["params"])))}
+    check(rec["resumed"] == ["[train] resumed from step 4"],
+          f"restart: {logs}")
+    check(gap < 1e-5, f"restart: final loss {gap} from the uninterrupted run")
+    bf16 = init_params(dataclasses.replace(cfg, dtype="bfloat16"), 1, "cuda")
+    path = os.path.join(root, "bf16")
+    ckpt.save(path, 1, {"params": bf16})
+    back = ckpt.restore(path, 1, {"params": bf16})
+    rec["bf16_checkpoint_bit_equal"] = all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for (_, a), (_, b) in zip(tree_items(back["params"]),
+                                  tree_items(bf16)))
+    check(rec["bf16_checkpoint_bit_equal"], "bf16 checkpoint roundtrip")
+    emit("train", part="restart", **rec)
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def train_phase(profile: bool) -> dict:
+    """Phase 12: the kernels' gradients, then yi-6b and mamba2-2.7b
+    trained at full width (float32, bfloat16), then restarts and
+    checkpoints."""
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 would not be float32")
+    t0 = time.perf_counter()
+    out = {"kernel_grads": kernel_grad_cases()}
+    for name in (MODEL, SSM_MODEL):
+        for dtype in ("float32", "bfloat16"):
+            out[f"{name}/{dtype}"] = train_model(name, dtype, profile)
+    out["restart"] = train_restarts()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {
+        k: sum(out[f"{m}/{dt}"]["launches"][k] for m in (MODEL, SSM_MODEL)
+               for dt in ("float32", "bfloat16"))
+        for k in ("flash_attention", "ssd")}
+    emit("train", part="summary", wall_s=out["wall_s"],
+         launches=out["launches"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where the device's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -2786,6 +3185,9 @@ def main(argv=None) -> int:
     # -- phases 9-11: the moe, encdec and vlm families ----------------------
     families = family_phases(args.profile)
 
+    # -- phase 12: training -------------------------------------------------
+    train = train_phase(args.profile)
+
     # -- the hier phase's all-numpy latency answers, after every timed phase
     emit("hier_numpy", requests=numpy_oracles(
         mapping["hier"]["requests"], args.scale, args.rotations),
@@ -2799,7 +3201,15 @@ def main(argv=None) -> int:
                 "hybrid_model_prefill":
                     hybrid["prefill_launches"]["flash_attention"],
                 **{p: families[p]["bfloat16"]["generate_launches"]
-                   ["flash_attention"] for p in families}}
+                   ["flash_attention"] for p in families},
+                "train": train["launches"]["flash_attention"]}
+    k3_paths = {"ssm_model_long_prefill":
+                    ssm["bfloat16"]["long_prefill_launches"]["ssd"],
+                "train": train["launches"]["ssd"]}
+    grads = {(r["kernel"], r["dtype"]): {
+        k: r[k] for k in ("case", "shape", "fwd_ms", "fwd_bwd_ms",
+                          "plain_fwd_bwd_ms")}
+        for r in train["kernel_grads"]}
     fa = next(r for r in attn if (r["case"], r["dtype"]) == ATTN_TIMED)
     sd = next(r for r in ssd if (r["case"], r["dtype"]) == SSD_TIMED[0])
     full, small = mapping["full"], mapping["small"]
@@ -2837,12 +3247,16 @@ def main(argv=None) -> int:
                   "dtype": fa["dtype"], "causal": True},
         "tolerance": {k: {"atol": a, "rtol": r}
                       for k, (a, r) in ATTN_TOL.items()},
+        "backward": "VJP of attention_xla_flash (plain torch), bit for bit",
+        "train_grads": {dt: grads[("flash_attention", dt)]
+                        for dt in ("float32", "bfloat16")},
     }, {
         "name": "ssd", "route": "cuda",
         "design": ssd_kernel.DESIGN[torch.bfloat16],
         "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:68",
-        "launches": ssm["bfloat16"]["long_prefill_launches"]["ssd"],
+        "launches": sum(k3_paths.values()),
+        "launches_by_path": k3_paths,
         "max_abs_err": max(r["max_abs_err"] for r in ssd),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
@@ -2851,6 +3265,10 @@ def main(argv=None) -> int:
                   "dtype": sd["dtype"]},
         "tolerance": {k: {"atol": f"{a:g} * max|y|", "rtol": r}
                       for k, (a, r) in SSD_TOL.items()},
+        "backward": "VJP of the chunked ssd_reference (plain torch), bit "
+                    "for bit",
+        "train_grads": {dt: grads[("ssd", dt)]
+                        for dt in ("float32", "bfloat16")},
     }, {
         "name": "segscan", "route": "cuda", "design": seg_kernel.DESIGN,
         "source": "src/repro_torch/kernels/segscan/csrc/segscan.cu",

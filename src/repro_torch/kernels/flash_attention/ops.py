@@ -3,7 +3,14 @@
 :func:`flash_attention` takes the model layout (B, S, H, D).  For CUDA
 tensors it checks its arguments, allocates the output and launches the
 kernel — or raises; for CPU tensors it runs the plain version
-(:mod:`.ref`) in the kernel layout.
+(:mod:`.ref`) in the kernel layout, and autograd follows that.
+
+On the card the call is a ``torch.autograd.Function``: the forward is
+the kernel; the backward recomputes the reference's training attention
+(:func:`.ref.attention_xla_flash`, what the reference differentiates:
+it never differentiates its Pallas kernel) from the saved q, k, v and
+returns its vector-Jacobian product.  So gradients on the card are
+autograd's of the plain function at the same inputs, bit for bit.
 
 Differences from the reference wrapper, by design: nothing is transposed
 or padded (the kernel reads the model layout by strides and masks the
@@ -25,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import kernel as _kernel
-from .ref import attention_ref
+from .ref import attention_ref, attention_xla_flash
 
 # wrapper calls that launched the kernel (a plain int; the plain version
 # never counts)
@@ -50,7 +57,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     cap: float = 0.0) -> torch.Tensor:
     """q: (B, S, H, D); k/v: (B, T, KH, D) with KH | H.  Returns
     (B, S, H, D) in q's dtype."""
-    global launch_count
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B,S,H,D) and k, v (B,T,KH,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -80,6 +86,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype == torch.bfloat16:
         for name, x in (("q", q), ("k", k), ("v", v)):
             check_rows_aligned(name, x)
+    return _FlashAttention.apply(q, k, v, causal, window, cap)
+
+
+def _launch(q, k, v, causal: bool, window: int, cap: float):
+    """The kernel's output for checked CUDA tensors q, k, v."""
+    global launch_count
+    b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -88,3 +101,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _kernel.flash_attention_launch(q, k, v, out, params)
     launch_count += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward is the VJP of
+    :func:`.ref.attention_xla_flash` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, cap)
+        return _launch(q, k, v, causal, window, cap)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, cap = ctx.mask
+        inputs = [x.detach().requires_grad_(need) for x, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            q = inputs[0]
+            pos_q = torch.arange(q.shape[1], device=q.device)
+            pos_k = torch.arange(inputs[1].shape[1], device=q.device)
+            out = attention_xla_flash(*inputs, q_pos=pos_q, k_pos=pos_k,
+                                      causal=causal, window=window, cap=cap)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if x.requires_grad else None
+                     for x in inputs) + (None, None, None)

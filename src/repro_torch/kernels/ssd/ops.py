@@ -6,7 +6,15 @@ returns y with the semantics of ``repro.models.layers.ssd_reference``
 For CUDA tensors it checks its arguments, allocates the output and
 launches the kernel — or raises; for CPU tensors it runs the plain
 version (:func:`.ref.ssd_model_ref`), which feeds the sequential
-recurrence as the reference wrapper feeds its kernel.
+recurrence as the reference wrapper feeds its kernel, and autograd
+follows that.
+
+On the card the call is a ``torch.autograd.Function``: the forward is
+the kernel; the backward recomputes the reference's chunked scan
+(:func:`.ref.ssd_reference` at ``chunk``, what the reference's Mamba2
+block differentiates in training) from the saved inputs and returns its
+vector-Jacobian product, so gradients on the card are autograd's of that
+plain function at the same inputs, bit for bit.
 
 Differences from the reference wrapper, by design: on the card nothing
 is transposed, premultiplied or broadcast per head — the kernel reads x,
@@ -20,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import kernel as _kernel
-from .ref import ssd_model_ref
+from .ref import ssd_model_ref, ssd_reference
 
 # wrapper calls that launched the kernel (a plain int; the plain version
 # never counts)
@@ -61,7 +69,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (b, l, h, p); dt: (b, l, h) float32; A: (h,) float32; B, C:
     (b, l, n), shared by every head.  Returns y: (b, l, h, p) in x's
     dtype."""
-    global launch_count
     _check(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         return ssd_model_ref(x, dt, A, B, C)
@@ -79,6 +86,13 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"most {_kernel.MAX_STATE}")
     if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
         raise ValueError("the last dim of x, B and C must be contiguous")
+    return _SSD.apply(x, dt, A, B, C, min(chunk, l))
+
+
+def _launch(x, dt, A, B, C):
+    """The kernel's y for checked CUDA tensors."""
+    global launch_count
+    b, l, h, p = x.shape
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
@@ -87,3 +101,25 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _kernel.ssd_launch(x, dt, A, B, C, y, params)
     launch_count += 1
     return y
+
+
+class _SSD(torch.autograd.Function):
+    """The kernel forward; the backward is the VJP of
+    :func:`.ref.ssd_reference` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _launch(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y, _ = ssd_reference(*inputs, chunk=ctx.chunk)
+        grads = iter(torch.autograd.grad(y, wanted, grad_y))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)

@@ -60,6 +60,12 @@ class MeshLayout:
     ranks: np.ndarray
     axis_names: tuple
 
+    @property
+    def devices(self) -> np.ndarray:
+        """The ranks, as ``jax.sharding.Mesh.devices`` holds the devices:
+        what the sharding rules read the axis sizes from."""
+        return self.ranks
+
     def device_mesh(self, device_type: str = "cuda"):
         """The ``torch.distributed.device_mesh.DeviceMesh`` over
         :attr:`ranks`.  Raises unless ``torch.distributed`` is

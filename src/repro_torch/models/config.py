@@ -5,9 +5,10 @@ difference: ``attn_impl`` names the port's attention paths.  "hopper"
 (the default) is the hand-written CUDA flash-attention kernel of
 :mod:`repro_torch.kernels.flash_attention` and takes the place of the
 reference's "pallas"; "xla_flash" (query-chunked) and "quadratic" keep
-their names and are plain torch.  ``loss_chunk``, ``remat`` and
-``scan_layers`` are kept for parity and read by nothing yet: serving
-needs none of them.
+their names and are plain torch.  ``loss_chunk`` is read by the loss
+(``transformer.lm_loss_from_hidden``) and ``remat`` by each layer
+stack's checkpointing (``transformer._remat``); ``scan_layers`` is kept
+for parity and read by nothing: the stack is always a Python loop.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class ModelConfig:
     act: str = "silu"             # mlp activation: silu | gelu
     dtype: str = "bfloat16"
     loss_chunk: int = 2048        # ce-loss seq chunking (0 = unchunked)
-    remat: str = "full"           # none | full | dots
+    remat: str = "full"           # none | full | names | dots | offload_dots
     scan_layers: bool = True
     attn_impl: str = "hopper"     # hopper | xla_flash | quadratic
 

@@ -28,7 +28,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-NEG_INF = -1e30
+# the training attention and the chunked SSD scan, the functions the
+# reference differentiates, live beside the kernels whose backward they
+# are (and are this module's ``attention_xla_flash`` / ``ssd_reference``)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    NEG_INF, attention_xla_flash, mask_bias as _mask_bias)
+from repro_torch.kernels.ssd.ref import (  # noqa: F401
+    f32 as _f32, ssd_reference)
 
 
 # ---------------------------------------------------------------------------
@@ -74,19 +80,6 @@ def activation(x, kind: str):
 # Attention (GQA + causal + sliding window + softcap)
 # ---------------------------------------------------------------------------
 
-def _mask_bias(q_pos, k_pos, causal: bool, window: int, dtype):
-    """(q, k) additive bias: 0 where attendable, -1e30 otherwise."""
-    ok = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
-                    device=q_pos.device)
-    d = q_pos[:, None] - k_pos[None, :]
-    if causal:
-        ok &= d >= 0
-    if window:
-        ok &= d < window
-    return torch.zeros(ok.shape, dtype=dtype,
-                       device=ok.device).masked_fill_(~ok, NEG_INF)
-
-
 def attention_quadratic(q, k, v, *, q_pos, k_pos, causal=True, window=0,
                         cap=0.0):
     """Reference attention.  q: (B,S,H,D); k/v: (B,T,KH,D)."""
@@ -100,35 +93,6 @@ def attention_quadratic(q, k, v, *, q_pos, k_pos, causal=True, window=0,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
-
-
-def attention_xla_flash(q, k, v, *, q_pos, k_pos, causal=True, window=0,
-                        cap=0.0, block: int = 512):
-    """Query-chunked attention.
-
-    The reference's ``attention_xla_flash`` in plain torch: per chunk of
-    ``block`` queries the softmax runs over the full key length in one
-    pass and nothing is carried between chunks.  k/v are repeated across
-    each query-head group once; scores are float32, the probabilities
-    are cast to q's dtype before the value product, as in the reference.
-    """
-    b, s, h, d = q.shape
-    kh = k.shape[2]
-    g = h // kh
-    block = min(block, s)
-    qc = (q * (d ** -0.5)).to(q.dtype)
-    kf = torch.repeat_interleave(k, g, dim=2).float()
-    vf = torch.repeat_interleave(v, g, dim=2)
-    out = torch.empty_like(q)
-    for c0 in range(0, s, block):
-        qi = qc[:, c0:c0 + block]
-        sc = torch.einsum("bshd,bthd->bhst", qi.float(), kf)
-        sc = softcap(sc, cap)
-        sc = sc + _mask_bias(q_pos[c0:c0 + block], k_pos, causal, window,
-                             sc.dtype)
-        p = torch.softmax(sc, dim=-1).to(q.dtype)
-        out[:, c0:c0 + block] = torch.einsum("bhst,bthd->bshd", p, vf)
-    return out
 
 
 def attention_decode(q, k_cache, v_cache, *, pos, window=0, cap=0.0):
@@ -326,58 +290,6 @@ def moe_block(cfg, p, x):
 # ---------------------------------------------------------------------------
 # Mamba2 (SSD) block
 # ---------------------------------------------------------------------------
-
-def _f32(*ts):
-    """The tensors in float32, as jnp.einsum promotes mixed operands."""
-    return tuple(t.float() for t in ts)
-
-
-def ssd_reference(x, dt, A, B, C, *, chunk: int):
-    """Chunked SSD scan (Dao & Gu 2024), plain torch.
-
-    x : (b, l, h, p)   dt: (b, l, h)   A: (h,) negative decay
-    B : (b, l, n)      C : (b, l, n)
-    returns y: (b, l, h, p) and final state (b, h, p, n)
-    """
-    b, l, h, p = x.shape
-    n = B.shape[-1]
-    q = chunk
-    nc = l // q
-    if nc * q != l:
-        raise ValueError(f"sequence length {l} is not a multiple of the "
-                         f"chunk {q}")
-    xc = x.reshape(b, nc, q, h, p)
-    dtc = dt.reshape(b, nc, q, h)
-    Bc = B.reshape(b, nc, q, n)
-    Cc = C.reshape(b, nc, q, n)
-    a = dtc * A  # (b, nc, q, h) log-decay increments (negative)
-    s_cum = torch.cumsum(a, dim=2)  # within-chunk cumulative
-    # intra-chunk: L[i,j] = exp(s_i - s_j) for j <= i
-    si = s_cum[:, :, :, None, :]        # (b,nc,q,1,h)
-    sj = s_cum[:, :, None, :, :]        # (b,nc,1,q,h)
-    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(mask[None, None, :, :, None], torch.exp(si - sj),
-                       0.0)  # (b,nc,q,q,h)
-    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (b,nc,q,q), x's dtype
-    scores = cb[..., None] * Lmat * dtc[:, :, None, :, :]
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", *_f32(scores, xc))
-    # chunk-final states: S_c = sum_j exp(s_Q - s_j) dt_j B_j x_j
-    decay_out = torch.exp(s_cum[:, :, -1:, :] - s_cum)   # (b,nc,q,h)
-    dBx = torch.einsum("bcqh,bcqn,bcqhp->bchpn",
-                       *_f32(decay_out * dtc, Bc, xc))
-    chunk_decay = torch.exp(s_cum[:, :, -1, :])          # (b,nc,h)
-    S = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    S_enter = []  # the state *entering* each chunk
-    for c in range(nc):
-        S_enter.append(S)
-        S = S * chunk_decay[:, c, :, None, None].float() + dBx[:, c]
-    S_enter = torch.stack(S_enter, dim=1)  # (b,nc,h,p,n)
-    # inter-chunk: y_i += C_i . (exp(s_i) * S_enter)
-    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp",
-                           *_f32(Cc, S_enter.to(Cc.dtype), torch.exp(s_cum)))
-    y = (y_intra + y_inter).reshape(b, l, h, p)
-    return y.to(x.dtype), S
-
 
 def ssd_step(x, dt, A, B, C, state):
     """Single-token SSD recurrence.  x: (b,h,p); state: (b,h,p,n)."""

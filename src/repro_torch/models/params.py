@@ -5,9 +5,11 @@ A model's parameters are declared once as a nested dict of :class:`P`
 specs (shape + logical axis names + init), as in the reference; the
 stacked per-layer tensors keep their leading ``(L, ...)`` axis.  From
 that declaration come :func:`init_params` (random weights on a device,
-drawn leaf by leaf from one explicit ``torch.Generator``) and
+drawn leaf by leaf from one explicit ``torch.Generator``),
 :func:`params_from_numpy` (the reference's weights, checked leaf by leaf
-against the declaration).
+against the declaration), and the trees of logical axes
+(:func:`tree_axes`) and of shapes and dtypes (:func:`tree_abstract`)
+that the sharding rules read.
 """
 
 from __future__ import annotations
@@ -37,6 +39,31 @@ class P:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} "
                              "differ in length")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A tensor's shape and dtype without its data (the counterpart of
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _map_specs(fn, spec_tree):
+    return {k: fn(v) if isinstance(v, P) else _map_specs(fn, v)
+            for k, v in spec_tree.items()}
+
+
+def tree_axes(spec_tree):
+    """Tree of logical-axis tuples, same structure as the params."""
+    return _map_specs(lambda p: tuple(p.axes), spec_tree)
+
+
+def tree_abstract(spec_tree, dtype: str):
+    """Tree of :class:`ShapeDtype`, same structure as the params."""
+    return _map_specs(lambda p: ShapeDtype(
+        tuple(int(s) for s in p.shape), DTYPES[p.dtype or dtype]), spec_tree)
 
 
 def spec_leaves(spec_tree, prefix: tuple = ()):

@@ -5,14 +5,16 @@ vlm (internvl).
 The reference scans its stacked layers with ``lax.scan`` and dispatches
 gemma's local / global layers and zamba's shared-attention sites with
 ``lax.cond`` on a per-layer flag; here the scan is a Python loop over
-the stacked tensors and the ``cond`` an ``if`` on the same flag.  The
-loss and training belong to a later slice of the port.
+the stacked tensors and the ``cond`` an ``if`` on the same flag.  Each
+loop body is checkpointed as ``cfg.remat`` asks (:func:`_remat`) when
+autograd records; :func:`loss_fn` is the training loss.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
@@ -129,6 +131,33 @@ def params_spec(cfg: ModelConfig) -> dict:
 # Blocks and the layer stack
 # ---------------------------------------------------------------------------
 
+REMAT = ("none", "full", "names", "dots", "offload_dots")
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` (one layer's body) as ``cfg.remat`` asks: the reference's
+    ``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant)
+    around the whole body, applied only while autograd records.
+
+    The reference's policies ("names": keep the attention outputs;
+    "dots": keep every matrix product's output; "offload_dots": keep
+    nothing on the card) save more or less of the body; here each is the
+    full checkpoint.  Gradients are the same under every policy — only
+    memory and recompute differ.  The layers draw no random numbers, so
+    no generator state is stashed for the recompute."""
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return body
+
+
 def _dense_block(cfg, p, x, positions, window, *, cache=None, cache_pos=None):
     h, kv = L.attn_block(cfg, p["attn"],
                          L.rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -167,10 +196,11 @@ def layer_params(lp: dict, i: int) -> dict:
 
 def _stack_dense(cfg, lp, x, positions, *, collect_kv=False):
     flags = _layer_flags(cfg)
+    body = _remat(cfg, lambda x, p, flag: _attn_windowed(cfg, p, x,
+                                                         positions, flag))
     kvs = []
     for i in range(cfg.num_layers):
-        x, kv = _attn_windowed(cfg, layer_params(lp, i), x, positions,
-                               flags[i])
+        x, kv = body(x, layer_params(lp, i), flags[i])
         if collect_kv:
             kvs.append(kv)
     return x, (kvs if collect_kv else None)
@@ -184,8 +214,9 @@ def _mamba_layer(cfg, p, x, *, cache=None):
 
 
 def _stack_ssm(cfg, lp, x, positions):
+    body = _remat(cfg, lambda x, p: _mamba_layer(cfg, p, x)[0])
     for i in range(cfg.num_layers):
-        x, _ = _mamba_layer(cfg, layer_params(lp, i), x)
+        x = body(x, layer_params(lp, i))
     return x, None
 
 
@@ -199,12 +230,16 @@ def _stack_hybrid(cfg, lp, shared, x, positions, *, collect_kv=False):
     every cfg.attn_every layers (same weights at every site).  With
     ``collect_kv`` also the per-layer (k, v) of the shared block, zeros
     at the layers that are not sites (the reference's scan outputs)."""
+    def layer(x, p, site):
+        x, _ = _mamba_layer(cfg, p, x)
+        if site:
+            return _dense_block(cfg, shared, x, positions, 0)
+        return x, None
+
+    body = _remat(cfg, layer)
     kvs = []
     for i in range(cfg.num_layers):
-        x, _ = _mamba_layer(cfg, layer_params(lp, i), x)
-        kv = None
-        if is_attn_site(cfg, i):
-            x, kv = _dense_block(cfg, shared, x, positions, 0)
+        x, kv = body(x, layer_params(lp, i), is_attn_site(cfg, i))
         if collect_kv:
             kvs.append(kv)
     if not collect_kv:
@@ -217,22 +252,25 @@ def _stack_encoder(cfg, lp, x):
     """The encoder: non-causal self-attention (roped over the frame
     positions) and the MLP, ``cfg.encoder_layers`` times."""
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        p = layer_params(lp, i)
+
+    def layer(x, p):
         h, _ = L.attn_block(cfg, p["attn"],
                             L.rms_norm(x, p["ln1"], cfg.norm_eps),
                             positions=positions, window=0, causal=False)
         x = x + h
-        x = x + L.mlp_block(cfg, p["mlp"],
-                            L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x + L.mlp_block(cfg, p["mlp"],
+                               L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+    body = _remat(cfg, layer)
+    for i in range(cfg.encoder_layers):
+        x = body(x, layer_params(lp, i))
     return x
 
 
 def _stack_encdec_decoder(cfg, lp, x, positions, enc_out):
     """The decoder: causal self-attention, cross-attention over the
     encoder output (each layer projects its own k / v), the MLP."""
-    for i in range(cfg.num_layers):
-        p = layer_params(lp, i)
+    def layer(x, p, enc_out):
         h, _ = L.attn_block(cfg, p["attn"],
                             L.rms_norm(x, p["ln1"], cfg.norm_eps),
                             positions=positions, window=0)
@@ -243,8 +281,12 @@ def _stack_encdec_decoder(cfg, lp, x, positions, enc_out):
                             L.rms_norm(x, p["ln2"], cfg.norm_eps),
                             positions=positions, cross_kv=(xk, xv))
         x = x + h
-        x = x + L.mlp_block(cfg, p["mlp"],
-                            L.rms_norm(x, p["ln3"], cfg.norm_eps))
+        return x + L.mlp_block(cfg, p["mlp"],
+                               L.rms_norm(x, p["ln3"], cfg.norm_eps))
+
+    body = _remat(cfg, layer)
+    for i in range(cfg.num_layers):
+        x = body(x, layer_params(lp, i), enc_out)
     return x
 
 
@@ -285,6 +327,33 @@ def unembed(cfg, params, x):
     return L.softcap(logits, cfg.final_softcap)
 
 
+def _ce_loss_chunk(cfg, params, x, labels, mask):
+    """(summed masked negative log-likelihood, summed mask), float32."""
+    logits = unembed(cfg, params, x).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def lm_loss_from_hidden(cfg, params, x, labels, mask):
+    """Cross-entropy with optional sequence chunking (``cfg.loss_chunk``
+    positions at a time, so the (B, S, V) logits are never whole in one
+    product).  The chunks' sums are added left to right in float32, as
+    the reference's ``lax.scan`` carries them."""
+    b, s, e = x.shape
+    c = cfg.loss_chunk
+    if not c or s <= c or s % c != 0:
+        nll, denom = _ce_loss_chunk(cfg, params, x, labels, mask)
+        return nll / torch.clamp(denom, min=1.0)
+    nll = denom = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, c):
+        n, d = _ce_loss_chunk(cfg, params, x[:, c0:c0 + c],
+                              labels[:, c0:c0 + c], mask[:, c0:c0 + c])
+        nll, denom = nll + n, denom + d
+    return nll / torch.clamp(denom, min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -308,6 +377,19 @@ def forward_hidden(cfg: ModelConfig, params, batch):
         x, _ = _stack_hybrid(cfg, params["layers"], params["shared_attn"],
                              x, positions)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """The mean masked next-token cross-entropy of ``batch`` ("tokens",
+    "labels", optional "mask" (ones), and the family's "frames" /
+    "patches"), a float32 scalar."""
+    x = forward_hidden(cfg, params, batch)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return lm_loss_from_hidden(cfg, params, x, labels, mask.float())
 
 
 def logits_fn(cfg: ModelConfig, params, batch):

@@ -1,0 +1,144 @@
+"""AdamW in plain torch with clipping, schedules, and optional int8
+gradient compression with error feedback.
+
+The reference package's ``train/optimizer.py``, on trees of tensors
+(nested dicts).  The moment trees have the parameters' structure, so
+they shard exactly like them.  :func:`apply_updates` writes the
+parameters and the moments IN PLACE — the counterpart of the reference
+step's ``donate_argnums=(0, 1)`` — and returns them all the same.
+Rounding matches the reference's: ``torch.round`` rounds half to even as
+``jnp.round`` does, and the bfloat16 moment casts round to nearest even
+on both sides.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.params import DTYPES, ShapeDtype
+
+from .tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"   # bfloat16 at grok/mixtral scale
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    schedule: str = "cosine"        # cosine | constant
+    compress_grads: bool = False    # int8 + error feedback
+
+
+def schedule_lr(cfg: OptConfig, step):
+    """The learning rate at ``step`` (an int or an integer tensor), a
+    float32 tensor: linear warm-up, then cosine decay to a tenth."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    if cfg.schedule == "constant":
+        return cfg.lr * warm
+    t = torch.clamp((step - cfg.warmup_steps) /
+                    max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def _device(params):
+    leaves = tree_leaves(params)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def init_state(cfg: OptConfig, params) -> dict:
+    dt = DTYPES[cfg.moment_dtype]
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    state = {
+        "step": torch.zeros((), dtype=torch.int32, device=_device(params)),
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+    }
+    if cfg.compress_grads:
+        state["err"] = tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+    return state
+
+
+def abstract_state(cfg: OptConfig, abstract_params) -> dict:
+    """:func:`init_state`'s shapes and dtypes (:class:`ShapeDtype`)."""
+    dt = DTYPES[cfg.moment_dtype]
+    state = {
+        "step": ShapeDtype((), torch.int32),
+        "m": tree_map(lambda p: ShapeDtype(p.shape, dt), abstract_params),
+        "v": tree_map(lambda p: ShapeDtype(p.shape, dt), abstract_params),
+    }
+    if cfg.compress_grads:
+        state["err"] = tree_map(lambda p: ShapeDtype(p.shape, torch.float32),
+                                abstract_params)
+    return state
+
+
+def global_norm(tree) -> torch.Tensor:
+    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    return torch.sqrt(sq)
+
+
+def _compress_int8(g, err):
+    """Symmetric per-tensor int8 quantisation with error feedback.
+
+    In a multi-pod deployment this runs *before* the cross-DCN gradient
+    all-reduce (8x wire-format reduction on the slowest links); the error
+    buffer re-injects the quantisation residual next step so convergence
+    is unaffected.  Returns (dequantised gradient in g's dtype, the new
+    residual in float32).
+    """
+    g32 = g.float() + err
+    scale = torch.clamp(g32.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
+    deq = q.float() * scale
+    return deq.to(g.dtype), g32 - deq
+
+
+@torch.no_grad()
+def apply_updates(cfg: OptConfig, params, grads, state):
+    """One AdamW step.  Returns (params, state, metrics); ``params`` and
+    the moments are the same tensors, updated in place."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0) if cfg.clip_norm else 1.0
+    new_state = {"step": step, "m": state["m"], "v": state["v"]}
+    if cfg.compress_grads:
+        pairs = tree_map(_compress_int8, grads, state["err"])
+        grads = tree_map(lambda pair: pair[0], pairs)
+        new_state["err"] = tree_map(lambda pair: pair[1], pairs)
+    lr = schedule_lr(cfg, step)
+    stepf = step.to(torch.float32)
+    b1c = 1 - torch.pow(cfg.b1, stepf)
+    b2c = 1 - torch.pow(cfg.b2, stepf)
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+        mh = m32 / b1c
+        vh = v32 / b2c
+        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        if cfg.weight_decay:
+            delta = delta + cfg.weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(m32)
+        v.copy_(v32)
+
+    tree_map(upd, params, grads, state["m"], state["v"])
+    return params, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -8,9 +8,12 @@ kernel is held against that plain version on the card by
 GQA, causal masks, sliding windows that cut through a tile, soft-capped
 logits, ragged sequence lengths, non-causal keys the reference would
 pad (which only the port takes).  Tolerances are those of
-``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.
+``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.  The autograd
+Function the card runs is driven here with its launch stood in for: its
+gradients must be autograd's of ``ref.attention_xla_flash`` bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -287,3 +290,107 @@ def test_bf16_rows_must_be_16_byte_aligned():
     with pytest.raises(ValueError, match="16-byte aligned rows"):
         ops.check_rows_aligned("v", x.view(-1)[1:1 + 2 * 8 * 4 * 63]
                                .view(2, 8, 4, 63))
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function the card runs: kernel forward, plain backward
+# ---------------------------------------------------------------------------
+
+def _fake_launch(calls):
+    """A stand-in for the kernel launch that writes the plain version's
+    output into ``out`` (there is no card here)."""
+    def launch(q, k, v, out, params):
+        calls.append(params.causal)
+        out.copy_(ref.attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=bool(params.causal), window=params.window,
+            cap=params.cap).transpose(1, 2))
+    return launch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,h,kh,d,causal,window,cap", [
+    (40, 40, 4, 2, 32, True, 0, 0.0),       # GQA 2:1
+    (600, 600, 4, 1, 16, True, 16, 30.0),   # two query chunks, MQA, cap
+    (24, 50, 4, 4, 32, False, 0, 0.0),      # cross-attention, S != T
+])
+def test_autograd_backward_is_the_vjp_of_the_training_attention(
+        monkeypatch, dtype, s, t, h, kh, d, causal, window, cap):
+    """On CPU tensors with the launch stood in for, the Function's
+    gradients equal autograd of ``ref.attention_xla_flash`` (what the
+    reference differentiates) bit for bit; the forward launches once and
+    the backward not at all."""
+    calls = []
+    monkeypatch.setattr(fa_kernel, "flash_attention_launch",
+                        _fake_launch(calls))
+    monkeypatch.setattr(ops, "launch_count", 0)
+    rng = np.random.default_rng(s + t)
+    tdt = DTYPES[dtype][1]
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(tdt).requires_grad_()
+               for shape in ((2, s, h, d), (2, t, kh, d), (2, t, kh, d)))
+    out = ops._FlashAttention.apply(q, k, v, causal, window, cap)
+    assert out.grad_fn is not None and out.dtype == tdt
+    assert ops.launch_count == 1 and len(calls) == 1
+    g = torch.from_numpy(rng.standard_normal(out.shape, np.float32)).to(tdt)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert ops.launch_count == 1
+    q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    plain = ref.attention_xla_flash(q2, k2, v2, q_pos=torch.arange(s),
+                                    k_pos=torch.arange(t), causal=causal,
+                                    window=window, cap=cap)
+    want = torch.autograd.grad(plain, (q2, k2, v2), g)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == tdt and torch.equal(a, b), name
+
+
+def test_autograd_backward_skips_inputs_without_grad(monkeypatch):
+    monkeypatch.setattr(fa_kernel, "flash_attention_launch",
+                        _fake_launch([]))
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 16, 2, 16), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 16, 2, 16), np.float32))
+    v = k.clone().requires_grad_()
+    out = ops._FlashAttention.apply(q, k, v, True, 0, 0.0)
+    (dv,) = torch.autograd.grad(out.sum(), (v,))
+    v2 = v.detach().clone().requires_grad_()
+    pos = torch.arange(16)
+    want = ref.attention_xla_flash(q, k, v2, q_pos=pos, k_pos=pos)
+    assert torch.equal(dv, torch.autograd.grad(want.sum(), (v2,))[0])
+
+
+def test_cpu_wrapper_output_carries_the_plain_gradient():
+    """On CPU tensors the wrapper runs the plain version, so its output
+    has a ``grad_fn`` and no launch is counted."""
+    (q, k, v) = _mk(3, 1, 24, 4, 2, 16)[1]
+    q.requires_grad_()
+    before = ops.launch_count
+    out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is not None and ops.launch_count == before
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, 0, 0.0),
+                                               (True, 48, 20.0),
+                                               (False, 0, 0.0)])
+def test_training_attention_grads_match_reference(causal, window, cap):
+    """``ref.attention_xla_flash`` and its gradient against the
+    reference's ``attention_xla_flash`` under ``jax.grad`` (600 queries:
+    two chunks of 512), float32, 2e-5."""
+    (qj, kj, vj), (qt, kt, vt) = _mk(7, 1, 600, 4, 2, 32)
+    pos = np.arange(600)
+    gj = jnp.asarray(np.random.default_rng(8).standard_normal(
+        qj.shape, np.float32))
+
+    def fj(q, k, v):
+        return jnp.sum(RL.attention_xla_flash(
+            q, k, v, q_pos=jnp.asarray(pos), k_pos=jnp.asarray(pos),
+            causal=causal, window=window, cap=cap) * gj)
+
+    want = jax.grad(fj, argnums=(0, 1, 2))(qj, kj, vj)
+    xs = [x.requires_grad_() for x in (qt, kt, vt)]
+    out = ref.attention_xla_flash(*xs, q_pos=torch.from_numpy(pos),
+                                  k_pos=torch.from_numpy(pos), causal=causal,
+                                  window=window, cap=cap)
+    got = torch.autograd.grad(out, xs, torch.from_numpy(np.array(gj)))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), **_tol("float32"))

@@ -106,29 +106,58 @@ def test_map_many_coalesces_batch_duplicates():
     assert svc.stats()["coalesced"] == 1
 
 
-def test_concurrent_duplicates_share_one_computation():
+def test_concurrent_duplicates_share_one_computation(monkeypatch):
+    """Three threads map one uncached request: one computes, two wait on
+    its flight.  The owner's computation is held until both others are
+    waiting on the flight's event (counted by wrapping the engine's
+    ``_InFlight``), so neither can come too late and be served warm;
+    every wait has a timeout."""
     import threading
+
+    from repro_torch.serve import engine
     _, req = _pair(FLAT_SCENARIOS[1], "torch")
+    n = 3
     gate = threading.Event()
+    joined = threading.Condition()
+    waiting = []
     calls = []
+
+    class CountingEvent(threading.Event):
+        def wait(self, timeout=None):
+            with joined:
+                waiting.append(1)
+                joined.notify_all()
+            return super().wait(timeout)
+
+    class CountingFlight(engine._InFlight):
+        __slots__ = ()
+
+        def __init__(self):
+            super().__init__()
+            self.event = CountingEvent()
+
+    monkeypatch.setattr(engine, "_InFlight", CountingFlight)
 
     class Slow(MappingService):
         def _compute(self, request):
             calls.append(1)
-            gate.wait(5)
+            gate.wait(30)
             return super()._compute(request)
 
     svc = Slow()
     out = []
     threads = [threading.Thread(target=lambda: out.append(svc.map(req)))
-               for _ in range(3)]
+               for _ in range(n)]
     for th in threads:
         th.start()
-    while svc.stats()["inflight"] == 0:
-        pass
+    with joined:
+        all_joined = joined.wait_for(lambda: len(waiting) >= n - 1,
+                                     timeout=30)
     gate.set()
     for th in threads:
-        th.join()
+        th.join(timeout=60)
+    assert all_joined, f"{len(waiting)} of {n - 1} threads joined the flight"
+    assert not any(th.is_alive() for th in threads)
     assert len(calls) == 1
     assert sorted(r.status for r in out) == ["coalesced", "coalesced",
                                              "cold"]

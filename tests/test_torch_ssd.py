@@ -7,7 +7,10 @@ sequential recurrence (the CUDA kernel is held against that plain version
 on the card by ``chip_smoke.py``), so these tests pin the semantics both
 must have: the model layout, chunks, a ragged chunk count, instant decay,
 strided views of one conv output.  Tolerances are those of
-``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.
+``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.  The autograd
+Function the card runs is driven here with its launch stood in for: its
+gradients must be autograd's of the chunked ``ref.ssd_reference`` bit for
+bit.
 """
 
 import jax
@@ -19,6 +22,7 @@ import torch
 from repro.kernels.ssd.ops import ssd as ref_ssd
 from repro.kernels.ssd.ref import ssd_ref as ref_oracle
 from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro.models import layers as RL
 from repro_torch.kernels.ssd import ops, ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -353,3 +357,99 @@ def test_design_names_both_paths():
                                  torch.bfloat16: "mma.sync"}
     assert set(ssd_kernel.CHUNK) == set(ssd_kernel.DTYPES)
     assert ssd_kernel.CHUNK[torch.bfloat16] == 64
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function the card runs: kernel forward, plain backward
+# ---------------------------------------------------------------------------
+
+def _fake_launch(calls):
+    """A stand-in for the kernel launch that writes the plain version's
+    output into ``y`` (there is no card here)."""
+    def launch(x, dt, A, B, C, y, params):
+        calls.append(1)
+        y.copy_(ref.ssd_model_ref(x, dt, A, B, C))
+    return launch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [(1, 32, 2, 16, 8, 8),
+                                             (2, 48, 3, 16, 16, 16),
+                                             (1, 24, 2, 16, 4, 64)])
+def test_autograd_backward_is_the_vjp_of_the_chunked_scan(
+        monkeypatch, dtype, b, l, h, p, n, chunk):
+    """On CPU tensors with the launch stood in for, the Function's
+    gradients (x, dt, A, B, C) equal autograd of ``ref.ssd_reference`` at
+    the same chunk (what the reference's Mamba2 block differentiates) bit
+    for bit; the forward launches once and the backward not at all."""
+    calls = []
+    monkeypatch.setattr(ssd_kernel, "ssd_launch", _fake_launch(calls))
+    monkeypatch.setattr(ops, "launch_count", 0)
+    _, ts = _mk(b + l, b, l, h, p, n, dtype)
+    ts = [t.requires_grad_() for t in ts]
+    y = ops._SSD.apply(*ts, min(chunk, l))
+    assert y.grad_fn is not None and y.dtype == ts[0].dtype
+    assert ops.launch_count == 1 and len(calls) == 1
+    g = torch.from_numpy(np.random.default_rng(l).standard_normal(
+        y.shape, np.float32)).to(y.dtype)
+    got = torch.autograd.grad(y, ts, g)
+    assert ops.launch_count == 1
+    t2 = [t.detach().clone().requires_grad_() for t in ts]
+    plain, _ = ref.ssd_reference(*t2, chunk=min(chunk, l))
+    want = torch.autograd.grad(plain, t2, g)
+    for name, a, w in zip(("x", "dt", "A", "B", "C"), got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w), name
+
+
+def test_cpu_wrapper_output_carries_the_plain_gradient():
+    _, (x, dt, A, B, C) = _mk(0, 1, 16, 2, 16, 8)
+    x.requires_grad_()
+    before = ops.launch_count
+    y = ops.ssd(x, dt, A, B, C, chunk=8)
+    assert y.grad_fn is not None and ops.launch_count == before
+
+
+def test_chunked_scan_grads_match_reference():
+    """``ref.ssd_reference`` and its gradient against the reference's
+    ``ssd_reference`` under ``jax.grad``, float32: 2e-5 of each
+    gradient's largest magnitude."""
+    js, ts = _mk(5, 2, 32, 3, 16, 8)
+    gj = jnp.asarray(np.random.default_rng(6).standard_normal(
+        (2, 32, 3, 16), np.float32))
+    want = jax.grad(lambda *a: jnp.sum(
+        RL.ssd_reference(*a, chunk=8)[0] * gj), argnums=range(5))(*js)
+    ts = [t.requires_grad_() for t in ts]
+    y, _ = ref.ssd_reference(*ts, chunk=8)
+    got = torch.autograd.grad(y, ts, torch.from_numpy(np.array(gj)))
+    for a, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(_np(a), w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max())
+
+
+def test_chunked_scan_gradient_is_finite_where_the_reference_is_nan():
+    """One step of dt = 100 in each chunk of 8 (A = -1) makes the decay
+    between its neighbours pass ~88, which overflows the reference's exp
+    above the diagonal, and its gradient there is 0 * inf = NaN; the port
+    masks the exponent instead, so its outputs are the reference's and
+    its gradient the sequential recurrence's (float32, 1e-4 of each
+    gradient's largest magnitude)."""
+    js, ts = _mk(9, 1, 16, 2, 16, 4)
+    dt = np.array(js[1])
+    dt[:, [3, 11], :] = 100.0
+    js[1], ts[1] = jnp.asarray(dt), torch.from_numpy(dt)
+    js[2], ts[2] = -jnp.ones(2, jnp.float32), -torch.ones(2)
+    ref_grads = jax.grad(lambda *a: jnp.sum(
+        RL.ssd_reference(*a, chunk=8)[0]), argnums=range(5))(*js)
+    assert not np.isfinite(np.asarray(ref_grads[1])).all()   # ddt
+    ts = [t.requires_grad_() for t in ts]
+    y, _ = ref.ssd_reference(*ts, chunk=8)
+    np.testing.assert_allclose(_np(y.detach()), np.asarray(
+        RL.ssd_reference(*js, chunk=8)[0]), rtol=2e-5, atol=2e-5)
+    got = torch.autograd.grad(y.sum(), ts)
+    t2 = [t.detach().clone().requires_grad_() for t in ts]
+    want = torch.autograd.grad(ref.ssd_model_ref(*t2).sum(), t2)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(_np(a), _np(w), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
