@@ -159,7 +159,8 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
 12. ``train`` — training on the card.  K2 at yi-6b's training attention
    (B=4, S=T=2048, H=32, KH=4, D=128, causal) and K3 at mamba2-2.7b's
    scan (B=4, L=2048, H=80, P=64, N=128, chunk 128), float32 and
-   bfloat16, as autograd Functions: the forward within ``ATTN_TOL`` /
+   bfloat16, as custom ops (``torch.ops.repro_torch.flash_attention``,
+   ``torch.ops.repro_torch.ssd``): the forward within ``ATTN_TOL`` /
    ``SSD_TOL`` of the plain version, one launch, none in the backward;
    every gradient bit for bit autograd's of the function the reference
    differentiates (``attention_xla_flash``, the chunked
@@ -180,6 +181,20 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    ``train_with_restarts`` failing at step 7 ends within 1e-5 of the
    uninterrupted run (bit-equality reported), and a bfloat16 checkpoint
    saved and restored is bit-equal.
+13. ``dryrun`` — the dry run of ``src/repro_torch/launch/dryrun.py``.
+   (a) One yi-6b training step (4 of 32 layers at full width, 4 x 2048,
+   bfloat16, ``remat="full"``) on a 1x1 mesh, as rank 0 of a fake
+   process group of one, counted by ``launch/op_cost.CostCounter``: for
+   real on the card, then under ``FakeTensorMode``.  Op counts, FLOPs
+   and HBM bytes must be equal, K2 called 8 times in both (forward and
+   recompute of 4 layers) and launched 8 times in the real step;
+   ``temp_peak_bytes`` prints beside ``torch.cuda.max_memory_allocated``.
+   (b) ``run_cell`` for yi_6b x train_4k and mamba2_2p7b x prefill_32k on
+   the 16x16 production mesh and mixtral_8x22b x decode_32k on the
+   2x16x16 one, as rank 0 of a fake world of 256 / 512 on card 0: each
+   ``ok``, its argument bytes equal to the spec arithmetic
+   (``spec_bytes``) and below the card's memory, collectives in the train
+   cell; each cell's seconds print.
 
 With ``--profile`` more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
@@ -768,29 +783,16 @@ ATTN_FAMILY_TIMED = tuple(
 PLAIN_SCORE_BYTES = 2 ** 33
 
 
-def live_entries(s: int, window: int, t: int | None = None,
-                 causal: bool = True) -> int:
-    """Score entries one head of an attention of ``s`` queries over
-    ``t`` keys (default ``s``) needs: query q sees the keys k < t with
-    k <= q when causal and q - k < window when windowed."""
-    import numpy as np
-    t = s if t is None else t
-    q = np.arange(s, dtype=np.int64)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
-    hi = np.minimum(q, t - 1) if causal else np.full_like(q, t - 1)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def attention_bound(b, s, h, kh, d, dtype, window, t=None,
                     causal=True) -> dict:
-    """Least time for one call: every input read and the output written
-    once over the memory rate, or 4*D flops (q.k and p.v) per live score
-    entry over the peak rate of the type (bf16 tensor cores; float32 must
-    stay float32, so the CUDA cores' rate)."""
-    t = s if t is None else t
-    elt = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * b * s * h * d + 2 * b * t * kh * d) * elt
-    flops = b * h * live_entries(s, window, t, causal) * 4 * d
+    """Least time for one call: the kernel's work (``kernel.work``: every
+    input read and the output written once, 4*D flops per live score
+    entry) over the memory rate or the peak rate of the type (bf16
+    tensor cores; float32 must stay float32, so the CUDA cores' rate)."""
+    from repro_torch.kernels.flash_attention import kernel
+    flops, nbytes = kernel.work(b, s, h, kh, d,
+                                2 if dtype == "bfloat16" else 4, window, t,
+                                causal)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -1104,7 +1106,6 @@ SSD_CASES = [
 # timed cases; the first is the kernels line's
 SSD_TIMED = (("mamba2-2.7b-prefill", "bfloat16"),
              ("zamba2-1.2b-prefill", "bfloat16"))
-SSD_REF_CHUNK = 128         # the reference kernel's chunk (ssd_scan)
 
 
 def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
@@ -1143,22 +1144,14 @@ def ssd_inputs(b, l, h, p, n, dtype, a_value, views, seed):
 
 
 def ssd_bound(b, l, h, p, n, dtype) -> dict:
-    """Least time for one call.  Bytes: x, dt, A, B and C read once, y
-    written once.  Operations: what the chunked form needs per (b, h) row
-    and chunk, counted at the reference kernel's chunk (``SSD_REF_CHUNK``,
-    128 steps) whatever chunk a design of the kernel takes, so that the
-    bound does not move with the design — 2(N + P) flops per live
-    (j <= i) score entry (C.B and the score-weighted x), 2NP per step for
-    the carried state's readout and 2NP per step for its update — over
-    the peak rate of the type (bf16 tensor cores; float32 must stay
-    float32, so the CUDA cores' rate)."""
-    elt = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * b * l * h * p + 2 * b * l * n) * elt + b * l * h * 4 \
-        + h * 4
-    q = min(SSD_REF_CHUNK, l)
-    chunks = -(-l // q)
-    live = q * (q + 1) // 2
-    flops = b * h * chunks * (live * 2 * (n + p) + 2 * 2 * q * n * p)
+    """Least time for one call: the kernel's work (``kernel.work``: its
+    inputs read and y written once, the chunked form's operations at the
+    reference's chunk) over the memory rate or the peak rate of the type
+    (bf16 tensor cores; float32 must stay float32, so the CUDA cores'
+    rate)."""
+    from repro_torch.kernels.ssd import kernel
+    flops, nbytes = kernel.work(b, l, h, p, n, 2 if dtype == "bfloat16"
+                                else 4)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -1647,8 +1640,8 @@ def grad_compare(name, got, want, again, tol) -> dict:
 
 
 def kernel_grad_cases() -> list:
-    """K2 and K3 as ``torch.autograd.Function``s at the training shapes,
-    float32 and bfloat16: the forward within ``ATTN_TOL`` / ``SSD_TOL``
+    """K2 and K3 as custom ops at the training shapes, float32 and
+    bfloat16: the forward within ``ATTN_TOL`` / ``SSD_TOL``
     of the plain version, the gradients bit for bit autograd's of the
     function the reference differentiates (``attention_xla_flash``, the
     chunked ``ssd_reference``), forward + backward timed beside the plain
@@ -1962,6 +1955,221 @@ def train_phase(profile: bool) -> dict:
         for k in ("flash_attention", "ssd")}
     emit("train", part="summary", wall_s=out["wall_s"],
          launches=out["launches"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dry run on the production meshes
+# ---------------------------------------------------------------------------
+
+# (arch, shape, two pods): one cell of each step kind
+DRY_CELLS = (("yi_6b", "train_4k", False),
+             ("mamba2_2p7b", "prefill_32k", False),
+             ("mixtral_8x22b", "decode_32k", True))
+
+
+def dry_step_counts() -> dict:
+    """(a) One yi-6b training step (``TRAIN_LAYERS`` layers at full
+    width, ``TRAIN_BATCH`` x ``TRAIN_SEQ``, bfloat16, ``remat="full"``)
+    on a 1x1 mesh as rank 0 of a fake world of one, counted by
+    ``CostCounter``: once for real on the card, once under
+    ``FakeTensorMode``.  Op counts, FLOPs, bytes and the K2 calls must be
+    equal, and K2 must have launched 8 times in the real step."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_cost import CostCounter
+    from repro_torch.meshmap import MeshLayout
+    from repro_torch.models import init_params, params_spec, tree_abstract
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import tree_map
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=TRAIN_LAYERS,
+                              dtype="bfloat16", remat="full",
+                              loss_chunk=2048)
+    opt = OptConfig()
+    np_batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                           seed=0).np_batch(0)
+    layout = MeshLayout(np.zeros((1, 1), np.int64), ("data", "model"))
+    with dryrun.fake_world(1):
+        mesh = dryrun.device_mesh(layout, "cuda")
+        params = init_params(cfg, 0, "cuda")
+        state = init_state(opt, params)
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in np_batch.items()}
+        step = make_train_step(cfg, opt, mesh)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        with CostCounter() as real:
+            _, _, metrics = step(params, state, batch)
+        loss = float(metrics["loss"].to_local())     # waits for the step
+        real_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        del params, state, batch, step, metrics
+        torch.cuda.empty_cache()
+        with FakeTensorMode():
+            fparams = tree_map(lambda a: torch.empty(
+                a.shape, dtype=a.dtype, device="cuda"),
+                tree_abstract(params_spec(cfg), cfg.dtype))
+            fstate = init_state(opt, fparams)
+            fbatch = {k: torch.empty(v.shape, dtype=torch.from_numpy(
+                v[:0]).dtype, device="cuda") for k, v in np_batch.items()}
+            fstep = make_train_step(cfg, opt, mesh)
+            t0 = time.perf_counter()
+            with CostCounter() as fake:
+                fstep(fparams, fstate, fbatch)
+            fake_s = time.perf_counter() - t0
+    r, f = real.result(), fake.result()
+    diff = {k: (r["op_counts"].get(k), f["op_counts"].get(k))
+            for k in set(r["op_counts"]) | set(f["op_counts"])
+            if r["op_counts"].get(k) != f["op_counts"].get(k)}
+    rec = {"model": MODEL, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "loss": loss,
+           "ops": sum(r["op_counts"].values()),
+           "flops": r["flops"], "bytes_hbm": r["bytes_hbm"],
+           "fake_flops": f["flops"], "fake_bytes_hbm": f["bytes_hbm"],
+           "op_count_differences": diff,
+           "k2_calls": r["op_counts"].get("repro_torch.flash_attention"),
+           "fake_k2_calls": f["op_counts"].get(
+               "repro_torch.flash_attention"),
+           "k2_launches": launches["flash_attention"],
+           "temp_peak_bytes": r["temp_peak_bytes"],
+           "fake_temp_peak_bytes": f["temp_peak_bytes"],
+           "cuda_peak_bytes_above_start": peak,
+           "real_s": real_s, "fake_s": fake_s}
+    check(not diff, f"dryrun: real and fake op counts differ: {diff}")
+    check(r["flops"] == f["flops"] and r["bytes_hbm"] == f["bytes_hbm"],
+          f"dryrun: real {r['flops']} / {r['bytes_hbm']} vs fake "
+          f"{f['flops']} / {f['bytes_hbm']}")
+    check(rec["k2_calls"] == rec["fake_k2_calls"] == rec["k2_launches"]
+          == 2 * TRAIN_LAYERS, f"dryrun: K2 {rec['k2_calls']} calls, "
+          f"{rec['fake_k2_calls']} fake, {rec['k2_launches']} launches")
+    check(sum(launches.values()) == launches["flash_attention"],
+          f"dryrun: another kernel launched: {launches}")
+    return rec
+
+
+def spec_bytes(spec_tree, abstract_tree, sizes: dict) -> int:
+    """Bytes of one device's shards of ``abstract_tree`` under the
+    partition specs ``spec_tree``: each dim divided by the product of
+    the mesh axes its spec entry names."""
+    import math
+    total = 0
+    for key, ab in abstract_tree.items():
+        spec = spec_tree[key]
+        if isinstance(ab, dict):
+            total += spec_bytes(spec, ab, sizes)
+            continue
+        dims = list(ab.shape)
+        for i, entry in enumerate(spec):
+            for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+                dims[i] //= sizes[ax]
+        total += math.prod(dims) * ab.dtype.itemsize
+    return total
+
+
+def dry_argument_bytes(arch: str, shape_name: str, layout) -> int:
+    """The dry run's arguments of a cell by spec arithmetic: the
+    parameters, and the optimizer state and batch (train), the batch
+    (prefill) or the cache, tokens and the int32 position (decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import SHAPES, cache_axes, cache_spec
+    from repro_torch.sharding.rules import PartitionSpec, spec_for_axes
+    from repro_torch.train.step import (batch_shardings, batch_specs,
+                                        model_shardings, opt_shardings)
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    rules = dryrun.rules_for(cfg, shape)
+    sizes = dict(zip(layout.axis_names, layout.ranks.shape))
+    psh, pab, _ = model_shardings(cfg, layout, rules)
+    total = spec_bytes(psh, pab, sizes)
+    dp = spec_for_axes(("batch",), rules, layout, (shape.global_batch,))
+    if shape.kind == "train":
+        osh, oab = opt_shardings(dryrun.opt_for(cfg), cfg, layout, rules)
+        total += spec_bytes(osh, oab, sizes)
+        total += spec_bytes(batch_shardings(cfg, shape, layout, rules),
+                            batch_specs(cfg, shape), sizes)
+    elif shape.kind == "prefill":
+        specs = dryrun.input_specs(arch, shape_name)
+        total += spec_bytes({k: PartitionSpec(*dp) for k in specs}, specs,
+                            sizes)
+    else:
+        cab = cache_spec(cfg, shape.global_batch, shape.seq_len)
+        cax = cache_axes(cfg)
+        total += spec_bytes({k: spec_for_axes(cax[k], rules, layout, v.shape)
+                             for k, v in cab.items()}, cab, sizes)
+        specs = dryrun.input_specs(arch, shape_name)
+        total += spec_bytes({"t": PartitionSpec(*dp)},
+                            {"t": specs["tokens"]}, sizes) + 4
+    return total
+
+
+def dry_cells() -> list:
+    """(b) ``run_cell`` on the production meshes as rank 0 of a fake world
+    of 256 or 512: each cell ``ok``, its argument bytes the spec
+    arithmetic's and below the card's memory, collectives in the train
+    cell, rank 0 on card 0."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    out_dir = os.path.join(OUT_DIR, "dryrun")
+    card = torch.cuda.get_device_properties(0).total_memory
+    recs = []
+    for arch, shape, multi in DRY_CELLS:
+        layout = make_production_mesh(multi_pod=multi)
+        tag = "pod2" if multi else "pod1"
+        t0 = time.perf_counter()
+        with dryrun.fake_world(layout.ranks.size):
+            mesh = dryrun.device_mesh(layout, "cuda")
+            check(torch.cuda.current_device() == 0,
+                  f"dryrun: rank 0 is on card {torch.cuda.current_device()}")
+            rec = dryrun.run_cell(arch, shape, mesh,
+                                  os.path.join(out_dir, tag), tag)
+        secs = time.perf_counter() - t0
+        check(rec["status"] == "ok", f"dryrun {arch} x {shape} on {tag}: "
+                                     f"{rec.get('error')}\n{rec.get('trace')}")
+        want = dry_argument_bytes(arch, shape, layout)
+        got = rec["memory"]["argument_size_in_bytes"]
+        out = {"arch": arch, "shape": shape, "mesh": tag,
+               "mesh_shape": rec["mesh_shape"], "seconds": secs,
+               "memory": rec["memory"], "spec_argument_bytes": want,
+               "cost": rec["cost"], "collectives": rec["collectives"],
+               "k2_calls": rec["op_counts"].get(
+                   "repro_torch.flash_attention", 0),
+               "k3_calls": rec["op_counts"].get("repro_torch.ssd", 0)}
+        check(got == want, f"dryrun {arch} x {shape}: argument bytes {got},"
+                           f" spec arithmetic {want}")
+        check(got < card, f"dryrun {arch} x {shape}: {got} argument bytes "
+                          f"do not fit the card's {card}")
+        check(rec["cost"]["flops"] > 0 and rec["cost"]["bytes_hbm"] > 0,
+              f"dryrun {arch} x {shape}: no cost counted")
+        if shape.startswith("train"):
+            check(rec["collectives"]["total_bytes"] > 0,
+                  f"dryrun {arch} x {shape}: a train step without "
+                  "collectives")
+        recs.append(out)
+    return recs
+
+
+def dryrun_phase() -> dict:
+    """Phase 13: (a) real against fake counts of one training step, (b)
+    three dry-run cells on the production meshes."""
+    t0 = time.perf_counter()
+    step = dry_step_counts()
+    emit("dryrun", part="step", **step)
+    cells = dry_cells()
+    emit("dryrun", part="cells", cells=cells)
+    out = {"step": step, "cells": cells,
+           "wall_s": time.perf_counter() - t0}
+    emit("dryrun", part="summary", wall_s=out["wall_s"])
     return out
 
 
@@ -3188,6 +3396,9 @@ def main(argv=None) -> int:
     # -- phase 12: training -------------------------------------------------
     train = train_phase(args.profile)
 
+    # -- phase 13: the dry run ------------------------------------------------
+    dry = dryrun_phase()
+
     # -- the hier phase's all-numpy latency answers, after every timed phase
     emit("hier_numpy", requests=numpy_oracles(
         mapping["hier"]["requests"], args.scale, args.rotations),
@@ -3202,7 +3413,8 @@ def main(argv=None) -> int:
                     hybrid["prefill_launches"]["flash_attention"],
                 **{p: families[p]["bfloat16"]["generate_launches"]
                    ["flash_attention"] for p in families},
-                "train": train["launches"]["flash_attention"]}
+                "train": train["launches"]["flash_attention"],
+                "dryrun": dry["step"]["k2_launches"]}
     k3_paths = {"ssm_model_long_prefill":
                     ssm["bfloat16"]["long_prefill_launches"]["ssd"],
                 "train": train["launches"]["ssd"]}

@@ -28,6 +28,30 @@ import ctypes
 
 import torch
 
+
+def live_entries(s: int, window: int, t: int | None = None,
+                 causal: bool = True) -> int:
+    """Score entries one head of an attention of ``s`` queries over
+    ``t`` keys (default ``s``) needs: query q sees the keys k < t with
+    k <= q when causal and q - k < window when windowed."""
+    import numpy as np
+    t = s if t is None else t
+    q = np.arange(s, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    hi = np.minimum(q, t - 1) if causal else np.full_like(q, t - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(b: int, s: int, h: int, kh: int, d: int, elt: int,
+         window: int = 0, t: int | None = None, causal: bool = True):
+    """(flops, bytes) one call needs, whatever the design: 4*D flops (q.k
+    and p.v) per live score entry, and q, k, v read once and the output
+    written once (``elt`` bytes an element).  ``chip_smoke.py``'s bound
+    and the dry run's op count (``launch/op_cost.py``) both read it."""
+    t = s if t is None else t
+    nbytes = (2 * b * s * h * d + 2 * b * t * kh * d) * elt
+    return b * h * live_entries(s, window, t, causal) * 4 * d, nbytes
+
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)          # the kernel's instantiations

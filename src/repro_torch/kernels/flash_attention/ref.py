@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.rules import logical
+
 NEG_INF = -1e30
 
 
@@ -88,8 +90,9 @@ def attention_xla_flash(q, k, v, *, q_pos, k_pos, causal=True, window=0,
     g = h // kh
     block = min(block, s)
     qc = (q * (d ** -0.5)).to(q.dtype)
-    kf = _repeat_heads(k, g).float()
-    vf = _repeat_heads(v, g)
+    kf = logical(_repeat_heads(k, g), ("batch", None, "act_heads", None))
+    vf = logical(_repeat_heads(v, g), ("batch", None, "act_heads", None))
+    kf = kf.float()
     out = torch.empty_like(q)
     for c0 in range(0, s, block):
         qi = qc[:, c0:c0 + block]
@@ -98,6 +101,8 @@ def attention_xla_flash(q, k, v, *, q_pos, k_pos, causal=True, window=0,
             sc = torch.tanh(sc / cap) * cap
         sc = sc + mask_bias(q_pos[c0:c0 + block], k_pos, causal, window,
                             sc.dtype)
+        # heads when the model axis divides them, else the query block
+        sc = logical(sc, ("batch", "act_heads", "sp_seq", None))
         p = torch.softmax(sc, dim=-1).to(q.dtype)
         out[:, c0:c0 + block] = torch.einsum("bhst,bthd->bshd", p, vf)
     return out

@@ -28,6 +28,25 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)          # the kernel's instantiations (P)
 MAX_STATE = 128                        # largest N; N must be a multiple of 4
+REF_CHUNK = 128                        # the reference kernel's chunk
+
+
+def work(b: int, l: int, h: int, p: int, n: int, elt: int):
+    """(flops, bytes) one call needs, whatever the design.  Bytes: x, B
+    and C (``elt`` bytes an element), dt and A (float32) read once, y
+    written once.  Operations: what the chunked form needs per (b, h) row
+    and chunk, counted at the reference kernel's chunk (``REF_CHUNK``)
+    whatever chunk a design takes, so that the count does not move with
+    the design — 2(N + P) flops per live (j <= i) score entry (C.B and
+    the score-weighted x), 2NP per step for the carried state's readout
+    and 2NP per step for its update.  ``chip_smoke.py``'s bound and the
+    dry run's op count (``launch/op_cost.py``) both read it."""
+    nbytes = (2 * b * l * h * p + 2 * b * l * n) * elt + b * l * h * 4 \
+        + h * 4
+    q = min(REF_CHUNK, l)
+    chunks = -(-l // q)
+    live = q * (q + 1) // 2
+    return b * h * chunks * (live * 2 * (n + p) + 2 * 2 * q * n * p), nbytes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # what each dtype runs on the card (the note at the top of the source)
 DESIGN = {torch.float32: "fma", torch.bfloat16: "mma.sync"}

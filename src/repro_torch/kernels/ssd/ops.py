@@ -6,15 +6,18 @@ returns y with the semantics of ``repro.models.layers.ssd_reference``
 For CUDA tensors it checks its arguments, allocates the output and
 launches the kernel — or raises; for CPU tensors it runs the plain
 version (:func:`.ref.ssd_model_ref`), which feeds the sequential
-recurrence as the reference wrapper feeds its kernel, and autograd
-follows that.
+recurrence as the reference wrapper feeds its kernel.
 
-On the card the call is a ``torch.autograd.Function``: the forward is
-the kernel; the backward recomputes the reference's chunked scan
-(:func:`.ref.ssd_reference` at ``chunk``, what the reference's Mamba2
-block differentiates in training) from the saved inputs and returns its
-vector-Jacobian product, so gradients on the card are autograd's of that
-plain function at the same inputs, bit for bit.
+The call is the custom operator ``torch.ops.repro_torch.ssd``
+(``torch.library.custom_op``): its CUDA implementation launches the
+kernel, its CPU implementation is the plain version, and its fake
+implementation gives y's shape, so the call also passes through
+``FakeTensorMode`` and, under ``local_map``, through DTensors.  Its
+backward (``register_autograd``), on every device, recomputes the
+reference's chunked scan (:func:`.ref.ssd_reference` at ``chunk``, what
+the reference's Mamba2 block differentiates in training) from the saved
+inputs and returns its vector-Jacobian product, so gradients are
+autograd's of that plain function at the same inputs, bit for bit.
 
 Differences from the reference wrapper, by design: on the card nothing
 is transposed, premultiplied or broadcast per head — the kernel reads x,
@@ -70,26 +73,32 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (b, l, n), shared by every head.  Returns y: (b, l, h, p) in x's
     dtype."""
     _check(x, dt, A, B, C, chunk)
-    if x.device.type != "cuda":
-        return ssd_model_ref(x, dt, A, B, C)
-
     b, l, h, p = x.shape
     n = B.shape[-1]
+    if x.device.type == "cuda":
+        if any(t.device != x.device for t in (dt, A, B, C)):
+            raise ValueError("x, dt, A, B and C must lie on one device")
+        if p not in _kernel.HEAD_DIMS:
+            raise ValueError(f"head dim {p} is not one of the kernel's "
+                             f"{_kernel.HEAD_DIMS}")
+        if n % 4 or n > _kernel.MAX_STATE:
+            raise ValueError(f"state size {n} must be a multiple of 4 and "
+                             f"at most {_kernel.MAX_STATE}")
+        if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
+            raise ValueError("the last dim of x, B and C must be contiguous")
+    return ssd_op(x, dt, A, B, C, min(chunk, l))
 
-    if any(t.device != x.device for t in (dt, A, B, C)):
-        raise ValueError("x, dt, A, B and C must lie on one device")
-    if p not in _kernel.HEAD_DIMS:
-        raise ValueError(f"head dim {p} is not one of the kernel's "
-                         f"{_kernel.HEAD_DIMS}")
-    if n % 4 or n > _kernel.MAX_STATE:
-        raise ValueError(f"state size {n} must be a multiple of 4 and at "
-                         f"most {_kernel.MAX_STATE}")
-    if x.stride(-1) != 1 or B.stride(-1) != 1 or C.stride(-1) != 1:
-        raise ValueError("the last dim of x, B and C must be contiguous")
-    return _SSD.apply(x, dt, A, B, C, min(chunk, l))
+
+@torch.library.custom_op("repro_torch::ssd", mutates_args=(),
+                         device_types="cpu")
+def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The plain version (CPU tensors); ``chunk`` is the backward's."""
+    return ssd_model_ref(x, dt, A, B, C)
 
 
-def _launch(x, dt, A, B, C):
+@ssd_op.register_kernel("cuda")
+def _launch(x, dt, A, B, C, chunk):
     """The kernel's y for checked CUDA tensors."""
     global launch_count
     b, l, h, p = x.shape
@@ -103,23 +112,27 @@ def _launch(x, dt, A, B, C):
     return y
 
 
-class _SSD(torch.autograd.Function):
-    """The kernel forward; the backward is the VJP of
-    :func:`.ref.ssd_reference` recomputed from the saved inputs."""
+@ssd_op.register_fake
+def _(x, dt, A, B, C, chunk):
+    return x.new_empty(x.shape)
 
-    @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk):
-        ctx.save_for_backward(x, dt, A, B, C)
-        ctx.chunk = chunk
-        return _launch(x, dt, A, B, C)
 
-    @staticmethod
-    def backward(ctx, grad_y):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            y, _ = ssd_reference(*inputs, chunk=ctx.chunk)
-        grads = iter(torch.autograd.grad(y, wanted, grad_y))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None,)
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:5])
+    ctx.chunk = inputs[5]
+
+
+def _backward(ctx, grad_y):
+    """The VJP of :func:`.ref.ssd_reference`, recomputed from the saved
+    inputs."""
+    inputs = [t.detach().requires_grad_(need) for t, need in
+              zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        y, _ = ssd_reference(*inputs, chunk=ctx.chunk)
+    grads = iter(torch.autograd.grad(y, wanted, grad_y))
+    return tuple(next(grads) if t.requires_grad else None
+                 for t in inputs) + (None,)
+
+
+ssd_op.register_autograd(_backward, setup_context=_setup_context)

@@ -5,7 +5,8 @@ training loss (:func:`loss_fn`), whose gradient runs through the same
 kernels' backward."""
 
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced
-from .decode import decode_step, init_cache, prefill
+from .decode import (cache_axes, cache_spec, decode_step, init_cache,
+                     prefill)
 from .params import (P, ShapeDtype, count_params, init_params,
                      params_from_numpy, tree_abstract, tree_axes)
 from .transformer import (forward_hidden, lm_loss_from_hidden, logits_fn,
@@ -13,7 +14,7 @@ from .transformer import (forward_hidden, lm_loss_from_hidden, logits_fn,
 
 __all__ = [
     "SHAPES", "ModelConfig", "P", "ShapeConfig", "ShapeDtype",
-    "count_params", "decode_step", "forward_hidden", "init_cache",
+    "cache_axes", "cache_spec", "count_params", "decode_step", "forward_hidden", "init_cache",
     "init_params", "lm_loss_from_hidden", "logits_fn", "loss_fn",
     "params_from_numpy", "params_spec", "prefill", "reduced",
     "tree_abstract", "tree_axes", "unembed",

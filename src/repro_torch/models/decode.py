@@ -10,7 +10,9 @@ encdec        : {"k","v": (L, B, S, KH, D), "xk","xv": (L, B, T, KH, D)}
 The decode step consumes one token per sequence at position ``pos`` and
 returns next-token logits plus the cache, which it updates IN PLACE:
 the reference's serving engine donates the cache to its jitted step, and
-writing into the same buffers is what that donation buys.
+writing into the same buffers is what that donation buys.  The cache's
+sequence dim carries the "kv_seq" logical axis (:func:`cache_axes`), so
+a DTensor cache at scale shards it over the model axis.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import logical, zeros
 
 from . import layers as L
 from .config import ModelConfig
-from .params import DTYPES
+from .params import DTYPES, ShapeDtype
 from .transformer import (_attn_windowed, _dense_block, _layer_flags,
                           _mamba_layer, _stack_dense, _stack_encdec_decoder,
                           _stack_hybrid, _stack_ssm, embed_tokens,
@@ -31,33 +34,64 @@ from .transformer import (_attn_windowed, _dense_block, _layer_flags,
 ATTENTION = ("dense", "moe", "vlm")   # the dense layer stack and cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device="cuda") -> dict:
-    dev = resolve_device(device)
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """:class:`ShapeDtype` of every cache entry (the dry run's stand-ins);
+    mirrors :func:`init_cache`."""
     dt = DTYPES[cfg.dtype]
     nl, kh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     out: dict = {}
     if cfg.family in ATTENTION + ("encdec",):
-        out["k"] = torch.zeros((nl, batch, max_seq, kh, hd), dtype=dt,
-                               device=dev)
-        out["v"] = torch.zeros_like(out["k"])
+        out["k"] = out["v"] = ShapeDtype((nl, batch, max_seq, kh, hd), dt)
     if cfg.family == "encdec":
-        out["xk"] = torch.zeros((nl, batch, cfg.encoder_seq, kh, hd),
-                                dtype=dt, device=dev)
-        out["xv"] = torch.zeros_like(out["xk"])
+        out["xk"] = out["xv"] = ShapeDtype(
+            (nl, batch, cfg.encoder_seq, kh, hd), dt)
     if cfg.family in ("ssm", "hybrid"):
         h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         conv_dim = cfg.ssm_inner + 2 * cfg.ssm_state
-        out["state"] = torch.zeros((nl, batch, h, p, n),
-                                   dtype=torch.float32, device=dev)
-        out["conv"] = torch.zeros((nl, batch, cfg.conv_width - 1, conv_dim),
-                                  dtype=dt, device=dev)
+        out["state"] = ShapeDtype((nl, batch, h, p, n), torch.float32)
+        out["conv"] = ShapeDtype((nl, batch, cfg.conv_width - 1, conv_dim),
+                                 dt)
     if cfg.family == "hybrid":
         sites = cfg.num_layers // cfg.attn_every
-        out["attn_k"] = torch.zeros((sites, batch, max_seq, kh, hd),
-                                    dtype=dt, device=dev)
-        out["attn_v"] = torch.zeros_like(out["attn_k"])
+        out["attn_k"] = out["attn_v"] = ShapeDtype(
+            (sites, batch, max_seq, kh, hd), dt)
     return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> dict:
+    """Zeros of :func:`cache_spec` on ``device``; under
+    :func:`~repro_torch.sharding.rules.use_mesh` DTensors placed by
+    :func:`cache_axes`."""
+    dev = resolve_device(device)
+    ax = cache_axes(cfg)
+    return {k: zeros(v.shape, v.dtype, ax[k], dev)
+            for k, v in cache_spec(cfg, batch, max_seq).items()}
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical axes tree matching :func:`init_cache`'s structure."""
+    kv = ("layers", "kv_batch", "kv_seq", "act_kv_heads", None)
+    ssm = {"state": ("layers", "kv_batch", "ssm_heads", None, None),
+           "conv": ("layers", "kv_batch", None, "ssm_inner")}
+    if cfg.family in ATTENTION:
+        return {"k": kv, "v": kv}
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "hybrid":
+        return dict(ssm, attn_k=kv, attn_v=kv)
+    if cfg.family == "encdec":
+        xkv = ("layers", "kv_batch", None, "act_kv_heads", None)
+        return {"k": kv, "v": kv, "xk": xkv, "xv": xkv}
+    return {}
+
+
+def _constrain_cache(cfg, cache: dict) -> dict:
+    """``cache`` itself, each DTensor entry placed by :func:`cache_axes`."""
+    ax = cache_axes(cfg)
+    for k, v in cache.items():
+        cache[k] = logical(v, ax[k])
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos: int):
@@ -71,6 +105,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos: int):
     """
     x = embed_tokens(cfg, params, tokens)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    cache = _constrain_cache(cfg, cache)
     lp = params["layers"]
     if cfg.family in ATTENTION:
         flags = _layer_flags(cfg)
@@ -109,7 +144,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, pos: int):
                                               "v": cache["attn_v"][site]},
                                     cache_pos=pos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(cfg, params, x), cache
+    return unembed(cfg, params, x), _constrain_cache(cfg, cache)
 
 
 def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None):
@@ -137,10 +172,10 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None):
         enc = encode(cfg, params, batch["frames"])
         lp = params["layers"]
         cache = init_cache(cfg, b, max_seq, device=tokens.device)
-        cache["xk"] = torch.einsum("bse,lekd->lbskd", enc,
-                                   lp["xattn"]["k"]).contiguous()
-        cache["xv"] = torch.einsum("bse,lekd->lbskd", enc,
-                                   lp["xattn"]["v"]).contiguous()
+        cache["xk"] = L.project("bse,lekd->lbskd", enc,
+                                lp["xattn"]["k"]).contiguous()
+        cache["xv"] = L.project("bse,lekd->lbskd", enc,
+                                lp["xattn"]["v"]).contiguous()
         x = embed_tokens(cfg, params, tokens)
         x = _stack_encdec_decoder(cfg, lp, x, positions, enc)
     else:
@@ -159,8 +194,8 @@ def prefill(cfg: ModelConfig, params, batch, max_seq: int | None = None):
         # activations
         cache = init_cache(cfg, b, max_seq, device=tokens.device)
     for i, (k, v) in enumerate(kvs or ()):
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        L.write_cache(cache["k"][i], k, 0)
+        L.write_cache(cache["v"][i], v, 0)
     del kvs
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x), cache

@@ -7,7 +7,10 @@ gemma's local / global layers and zamba's shared-attention sites with
 ``lax.cond`` on a per-layer flag; here the scan is a Python loop over
 the stacked tensors and the ``cond`` an ``if`` on the same flag.  Each
 loop body is checkpointed as ``cfg.remat`` asks (:func:`_remat`) when
-autograd records; :func:`loss_fn` is the training loss.
+autograd records; :func:`loss_fn` is the training loss.  The residual
+stream, embeddings and logits carry the reference's sharding annotations
+(:func:`_sp`, :func:`embed_tokens`, :func:`unembed`), which act on
+DTensors only.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.rules import logical
 
 from . import layers as L
 from .config import ModelConfig
@@ -158,17 +163,20 @@ def _remat(cfg: ModelConfig, fn):
     return body
 
 
+_sp = L.seq_sharded
+
+
 def _dense_block(cfg, p, x, positions, window, *, cache=None, cache_pos=None):
     h, kv = L.attn_block(cfg, p["attn"],
                          L.rms_norm(x, p["ln1"], cfg.norm_eps),
                          positions=positions, window=window,
                          cache=cache, cache_pos=cache_pos)
-    x = x + h
+    x = _sp(x + h)
     inner = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        x = x + L.moe_block(cfg, p["moe"], inner)
+        x = _sp(x + L.moe_block(cfg, p["moe"], inner))
     else:
-        x = x + L.mlp_block(cfg, p["mlp"], inner)
+        x = _sp(x + L.mlp_block(cfg, p["mlp"], inner))
     return x, kv
 
 
@@ -210,7 +218,7 @@ def _mamba_layer(cfg, p, x, *, cache=None):
     h, cache = L.mamba_block(cfg, p["mamba"],
                              L.rms_norm(x, p["ln1"], cfg.norm_eps),
                              cache=cache)
-    return x + h, cache
+    return _sp(x + h), cache
 
 
 def _stack_ssm(cfg, lp, x, positions):
@@ -257,9 +265,9 @@ def _stack_encoder(cfg, lp, x):
         h, _ = L.attn_block(cfg, p["attn"],
                             L.rms_norm(x, p["ln1"], cfg.norm_eps),
                             positions=positions, window=0, causal=False)
-        x = x + h
-        return x + L.mlp_block(cfg, p["mlp"],
-                               L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        x = _sp(x + h)
+        return _sp(x + L.mlp_block(cfg, p["mlp"],
+                                   L.rms_norm(x, p["ln2"], cfg.norm_eps)))
 
     body = _remat(cfg, layer)
     for i in range(cfg.encoder_layers):
@@ -274,15 +282,15 @@ def _stack_encdec_decoder(cfg, lp, x, positions, enc_out):
         h, _ = L.attn_block(cfg, p["attn"],
                             L.rms_norm(x, p["ln1"], cfg.norm_eps),
                             positions=positions, window=0)
-        x = x + h
-        xk = torch.einsum("bse,ekd->bskd", enc_out, p["xattn"]["k"])
-        xv = torch.einsum("bse,ekd->bskd", enc_out, p["xattn"]["v"])
+        x = _sp(x + h)
+        xk = L.project("bse,ekd->bskd", enc_out, p["xattn"]["k"])
+        xv = L.project("bse,ekd->bskd", enc_out, p["xattn"]["v"])
         h, _ = L.attn_block(cfg, p["xattn"],
                             L.rms_norm(x, p["ln2"], cfg.norm_eps),
                             positions=positions, cross_kv=(xk, xv))
-        x = x + h
-        return x + L.mlp_block(cfg, p["mlp"],
-                               L.rms_norm(x, p["ln3"], cfg.norm_eps))
+        x = _sp(x + h)
+        return _sp(x + L.mlp_block(cfg, p["mlp"],
+                                   L.rms_norm(x, p["ln3"], cfg.norm_eps)))
 
     body = _remat(cfg, layer)
     for i in range(cfg.num_layers):
@@ -295,8 +303,9 @@ def _stack_encdec_decoder(cfg, lp, x, positions, enc_out):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens):
-    x = params["tok_embed"][tokens] * (cfg.d_model ** 0.5)
-    return x.to(DTYPES[cfg.dtype])
+    x = L.embed_lookup(params["tok_embed"], tokens) * (cfg.d_model ** 0.5)
+    return logical(x.to(DTYPES[cfg.dtype]),
+                   ("batch", "act_seq", "act_embed"))
 
 
 def embed_with_patches(cfg, params, batch):
@@ -304,34 +313,79 @@ def embed_with_patches(cfg, params, batch):
     are the projected patch embeddings instead."""
     x = embed_tokens(cfg, params, batch["tokens"])
     if cfg.family == "vlm":
-        patches = torch.einsum("bpf,fe->bpe",
-                               batch["patches"].to(DTYPES[cfg.dtype]),
-                               params["frontend_proj"])
+        patches = L.project("bpf,fe->bpe",
+                            batch["patches"].to(DTYPES[cfg.dtype]),
+                            params["frontend_proj"])
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+        x = logical(x, ("batch", "act_seq", "act_embed"))
     return x
 
 
 def encode(cfg, params, frames):
     """The encdec encoder's output, normed: frames (B, T, frontend_dim)
     projected, through the encoder stack and ``enc_final_norm``."""
-    enc_in = torch.einsum("btf,fe->bte", frames.to(DTYPES[cfg.dtype]),
-                          params["frontend_proj"])
-    enc = _stack_encoder(cfg, params["encoder"], enc_in)
-    return L.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps)
+    enc_in = L.project("btf,fe->bte", frames.to(DTYPES[cfg.dtype]),
+                       params["frontend_proj"])
+    enc = _stack_encoder(cfg, params["encoder"], _sp(enc_in))
+    return L.seq_gathered(
+        L.rms_norm(enc, params["enc_final_norm"], cfg.norm_eps))
 
 
 def unembed(cfg, params, x):
     w = (params["tok_embed"].T if cfg.tie_embeddings
          else params["unembed"])
-    logits = torch.einsum("bse,ev->bsv", x, w)
-    return L.softcap(logits, cfg.final_softcap)
+    logits = L.project("bse,ev->bsv", L.seq_gathered(x), w)
+    logits = L.softcap(logits, cfg.final_softcap)
+    return logical(logits, ("batch", "act_seq", "act_vocab"))
+
+
+def _logsumexp(logits):
+    """``torch.logsumexp(logits, -1)``.  On a DTensor the max and the sum
+    over the (possibly sharded) vocab are reduced as such (a ``Partial``
+    max and sum), never by gathering the logits whole; the max is a
+    constant of the gradient, as in any stable logsumexp."""
+    if not L.is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import Partial, Replicate
+
+    def reduced(x):   # all-reduced where partial, so no shard moves
+        return x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in x.placements])
+
+    m = reduced(logits.detach().amax(-1))
+    return m + torch.log(reduced(torch.exp(logits - m[..., None]).sum(-1)))
+
+
+def _gold_logits(logits, labels):
+    """``logits[..., labels]``.  On a DTensor whose vocab dim is sharded
+    each shard picks the labels it holds (zero elsewhere), and the
+    result is their ``Partial`` sum."""
+    if not L.is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, lp = logits.device_mesh, list(logits.placements)
+    vi, vn = L._mesh_coordinate(mesh, lp, 2)
+    vl = logits.shape[-1] // vn
+    lab = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+           for p in lp]
+    out = [Partial() if isinstance(p, Shard) and p.dim == 2 else p
+           for p in lp]
+
+    def local(lg, lab):
+        idx = lab.long() - vi * vl
+        ok = (idx >= 0) & (idx < vl)
+        g = torch.gather(lg, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+        return torch.where(ok, g, 0.0)
+
+    return L._local_map(local, (lp, lab), out, mesh)(logits, labels)
 
 
 def _ce_loss_chunk(cfg, params, x, labels, mask):
     """(summed masked negative log-likelihood, summed mask), float32."""
     logits = unembed(cfg, params, x).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    logz = _logsumexp(logits)
+    gold = _gold_logits(logits, labels)
     nll = (logz - gold) * mask
     return nll.sum(), mask.sum()
 

@@ -8,15 +8,29 @@ an earlier dim of the same tensor — this is what lets one rule set
 serve configs whose kv_heads / experts are smaller than the model axis.
 
 A mesh is any object with ``axis_names`` and ``devices``, an array whose
-shape is the axis sizes: the port's
-:class:`~repro_torch.meshmap.device_mesh.MeshLayout` (its ranks), or a
-stand-in.  :func:`spec_for_axes` returns the reference's partition
-specs as :class:`PartitionSpec`, a tuple of the port's own, and
-:func:`tree_shardings` a tree of them: one card places nothing, so
-there is no ``NamedSharding`` here and :func:`logical` is the identity.
+shape is the axis sizes (the port's
+:class:`~repro_torch.meshmap.device_mesh.MeshLayout`, or a stand-in), or
+a ``torch.distributed.device_mesh.DeviceMesh``.  :func:`spec_for_axes`
+returns the reference's partition specs as :class:`PartitionSpec`, a
+tuple of the port's own, and :func:`tree_shardings` a tree of them.
+
+A spec becomes a placement by :func:`placements_for`: one DTensor
+placement a mesh dim, ``Shard(i)`` on each mesh dim that tensor dim
+``i`` names (``("pod", "data")`` shards one dim over two mesh dims, pod
+major, as the reference's spec does).  :func:`use_mesh` is the
+reference's ``with mesh:``; under it :func:`logical` redistributes a
+DTensor to its logical axes' placements, the reference's
+``with_sharding_constraint``.  A plain tensor passes through
+:func:`logical` untouched, so a one-card step keeps its bits.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 # The baseline parallelism recipe: DP+FSDP over (pod, data); TP/SP/EP over
 # model.
@@ -66,6 +80,8 @@ class PartitionSpec(tuple):
 
 
 def mesh_axis_sizes(mesh) -> dict:
+    if hasattr(mesh, "mesh_dim_names"):  # a DeviceMesh
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
@@ -116,7 +132,110 @@ def tree_shardings(axes_tree, abstract_tree, rules: dict, mesh):
             for k, v in axes_tree.items()}
 
 
+def placements_for(spec: PartitionSpec, device_mesh) -> list:
+    """The DTensor placements of ``spec`` on ``device_mesh``: one a mesh
+    dim, ``Replicate()`` where no tensor dim names it.  A tensor dim
+    that names several mesh axes must name them in the mesh's order."""
+    names = list(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        dims = [names.index(ax) for ax in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's "
+                             f"axis order {tuple(names)}")
+        for d in dims:
+            out[d] = Shard(i)
+    return out
+
+
+_MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(device_mesh, rules: dict | None = None):
+    """The reference's ``with mesh:``: :func:`logical` and the layers'
+    kernel calls read ``device_mesh`` and ``rules`` (the defaults when
+    None) inside the block.  Plain tensors that meet a DTensor are taken
+    as replicated (``implicit_replication``; the flag is restored on
+    exit, so blocks nest), as constants are under ``jit``."""
+    dispatcher = DTensor._op_dispatcher   # what implicit_replication sets
+    token = _MESH.set((device_mesh, rules or DEFAULT_RULES))
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield device_mesh
+    finally:
+        dispatcher._allow_implicit_replication = before
+        _MESH.reset(token)
+
+
+def current_mesh():
+    """``(device_mesh, rules)`` of the innermost :func:`use_mesh`, or
+    None outside one."""
+    return _MESH.get()
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def logical_placements(axes, shape, rules: dict | None = None,
+                       device_mesh=None) -> list:
+    """The placements of a tensor of ``shape`` with logical ``axes``
+    under :func:`use_mesh` (or the ``device_mesh`` / ``rules`` given)."""
+    if device_mesh is None or rules is None:
+        cur_mesh, cur_rules = current_mesh() or (None, DEFAULT_RULES)
+        device_mesh = device_mesh or cur_mesh
+        rules = rules or cur_rules
+    return placements_for(spec_for_axes(axes, rules, device_mesh, shape),
+                          device_mesh)
+
+
+def zeros(shape, dtype, axes, device=None):
+    """``torch.zeros(shape)``, or under :func:`use_mesh` a DTensor of
+    zeros placed by the logical ``axes`` (each rank allocates its own
+    shard only)."""
+    if current_mesh() is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    mesh, rules = current_mesh()
+    pl = logical_placements(axes, shape, rules, mesh)
+    return placed(torch.zeros(local_shape(shape, pl, mesh), dtype=dtype,
+                              device=device), shape, pl, mesh)
+
+
+def local_shape(shape, placements, device_mesh) -> tuple:
+    """The shard shape of a tensor of ``shape`` under ``placements``
+    (every sharded dim divides evenly: :func:`spec_for_axes` keeps only
+    such mappings)."""
+    out = list(shape)
+    for m, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            out[pl.dim] //= device_mesh.size(m)
+    return tuple(out)
+
+
+def placed(local, shape, placements, device_mesh):
+    """The DTensor of global ``shape`` whose shard on this rank is
+    ``local``; nothing is communicated."""
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, device_mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def logical(x, axes, rules: dict | None = None, mesh=None):
-    """The reference's ``with_sharding_constraint`` by logical names: on
-    one card there is nothing to constrain, so ``x`` itself."""
-    return x
+    """The reference's ``with_sharding_constraint`` by logical names: a
+    DTensor is redistributed to ``spec_for_axes(axes, ...)`` on its mesh
+    (a pending ``Partial`` sum is reduced there); anything else is
+    returned as it is."""
+    if not is_dtensor(x):
+        return x
+    want = logical_placements(axes, x.shape, rules, mesh or x.device_mesh)
+    if list(x.placements) == want:
+        return x
+    # a shard cut from a replica is a strided view; ops that view their
+    # input (einsum) need it dense
+    return x.redistribute(x.device_mesh, want).contiguous()

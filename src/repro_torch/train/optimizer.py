@@ -19,6 +19,7 @@ import math
 import torch
 
 from repro_torch.models.params import DTYPES, ShapeDtype
+from repro_torch.sharding.rules import is_dtensor
 
 from .tree import tree_leaves, tree_map
 
@@ -89,7 +90,14 @@ def abstract_state(cfg: OptConfig, abstract_params) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm of every leaf together.  On DTensor leaves each
+    leaf's sum of squares is a partial sum over its shards; the total is
+    reduced once, to ``Replicate()``, before the square root."""
     sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    if is_dtensor(sq):
+        from torch.distributed.tensor import Replicate
+        sq = sq.redistribute(sq.device_mesh,
+                             [Replicate()] * sq.device_mesh.ndim)
     return torch.sqrt(sq)
 
 

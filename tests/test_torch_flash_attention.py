@@ -8,8 +8,8 @@ kernel is held against that plain version on the card by
 GQA, causal masks, sliding windows that cut through a tile, soft-capped
 logits, ragged sequence lengths, non-causal keys the reference would
 pad (which only the port takes).  Tolerances are those of
-``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.  The autograd
-Function the card runs is driven here with its launch stood in for: its
+``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.  The custom
+op the card runs is driven here, its CUDA launch stood in for: its
 gradients must be autograd's of ``ref.attention_xla_flash`` bit for bit.
 """
 
@@ -293,7 +293,7 @@ def test_bf16_rows_must_be_16_byte_aligned():
 
 
 # ---------------------------------------------------------------------------
-# the autograd Function the card runs: kernel forward, plain backward
+# the custom op the card runs: kernel forward, plain backward
 # ---------------------------------------------------------------------------
 
 def _fake_launch(calls):
@@ -316,10 +316,12 @@ def _fake_launch(calls):
 ])
 def test_autograd_backward_is_the_vjp_of_the_training_attention(
         monkeypatch, dtype, s, t, h, kh, d, causal, window, cap):
-    """On CPU tensors with the launch stood in for, the Function's
-    gradients equal autograd of ``ref.attention_xla_flash`` (what the
-    reference differentiates) bit for bit; the forward launches once and
-    the backward not at all."""
+    """The custom op's gradients equal autograd of
+    ``ref.attention_xla_flash`` (what the reference differentiates) bit
+    for bit, on every device (here its CPU implementation runs the
+    forward); its CUDA implementation, with the launch stood in for,
+    launches once and gives the plain version's output, and the backward
+    launches nothing."""
     calls = []
     monkeypatch.setattr(fa_kernel, "flash_attention_launch",
                         _fake_launch(calls))
@@ -329,9 +331,12 @@ def test_autograd_backward_is_the_vjp_of_the_training_attention(
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
                .to(tdt).requires_grad_()
                for shape in ((2, s, h, d), (2, t, kh, d), (2, t, kh, d)))
-    out = ops._FlashAttention.apply(q, k, v, causal, window, cap)
+    out = ops.flash_attention_op(q, k, v, causal, window, cap)
     assert out.grad_fn is not None and out.dtype == tdt
+    with torch.no_grad():
+        launched = ops._launch(q, k, v, causal, window, cap)
     assert ops.launch_count == 1 and len(calls) == 1
+    assert torch.equal(launched, out)
     g = torch.from_numpy(rng.standard_normal(out.shape, np.float32)).to(tdt)
     got = torch.autograd.grad(out, (q, k, v), g)
     assert ops.launch_count == 1
@@ -351,7 +356,7 @@ def test_autograd_backward_skips_inputs_without_grad(monkeypatch):
     q = torch.from_numpy(rng.standard_normal((1, 16, 2, 16), np.float32))
     k = torch.from_numpy(rng.standard_normal((1, 16, 2, 16), np.float32))
     v = k.clone().requires_grad_()
-    out = ops._FlashAttention.apply(q, k, v, True, 0, 0.0)
+    out = ops.flash_attention_op(q, k, v, True, 0, 0.0)
     (dv,) = torch.autograd.grad(out.sum(), (v,))
     v2 = v.detach().clone().requires_grad_()
     pos = torch.arange(16)

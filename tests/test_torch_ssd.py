@@ -7,8 +7,8 @@ sequential recurrence (the CUDA kernel is held against that plain version
 on the card by ``chip_smoke.py``), so these tests pin the semantics both
 must have: the model layout, chunks, a ragged chunk count, instant decay,
 strided views of one conv output.  Tolerances are those of
-``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.  The autograd
-Function the card runs is driven here with its launch stood in for: its
+``tests/test_kernels.py``: float32 2e-5, bfloat16 2e-2.  The custom
+op the card runs is driven here, its CUDA launch stood in for: its
 gradients must be autograd's of the chunked ``ref.ssd_reference`` bit for
 bit.
 """
@@ -360,7 +360,7 @@ def test_design_names_both_paths():
 
 
 # ---------------------------------------------------------------------------
-# the autograd Function the card runs: kernel forward, plain backward
+# the custom op the card runs: kernel forward, plain backward
 # ---------------------------------------------------------------------------
 
 def _fake_launch(calls):
@@ -378,18 +378,23 @@ def _fake_launch(calls):
                                              (1, 24, 2, 16, 4, 64)])
 def test_autograd_backward_is_the_vjp_of_the_chunked_scan(
         monkeypatch, dtype, b, l, h, p, n, chunk):
-    """On CPU tensors with the launch stood in for, the Function's
-    gradients (x, dt, A, B, C) equal autograd of ``ref.ssd_reference`` at
-    the same chunk (what the reference's Mamba2 block differentiates) bit
-    for bit; the forward launches once and the backward not at all."""
+    """The custom op's gradients (x, dt, A, B, C) equal autograd of
+    ``ref.ssd_reference`` at the same chunk (what the reference's Mamba2
+    block differentiates) bit for bit, on every device (here its CPU
+    implementation runs the forward); its CUDA implementation, with the
+    launch stood in for, launches once and gives the plain version's y,
+    and the backward launches nothing."""
     calls = []
     monkeypatch.setattr(ssd_kernel, "ssd_launch", _fake_launch(calls))
     monkeypatch.setattr(ops, "launch_count", 0)
     _, ts = _mk(b + l, b, l, h, p, n, dtype)
     ts = [t.requires_grad_() for t in ts]
-    y = ops._SSD.apply(*ts, min(chunk, l))
+    y = ops.ssd_op(*ts, min(chunk, l))
     assert y.grad_fn is not None and y.dtype == ts[0].dtype
+    with torch.no_grad():
+        launched = ops._launch(*ts, min(chunk, l))
     assert ops.launch_count == 1 and len(calls) == 1
+    assert torch.equal(launched, y)
     g = torch.from_numpy(np.random.default_rng(l).standard_normal(
         y.shape, np.float32)).to(y.dtype)
     got = torch.autograd.grad(y, ts, g)

@@ -7,7 +7,7 @@ Run from the repository root::
 
 Builds the two kernels the training path launches (flash attention, K2,
 and the SSD scan, K3), then runs ``chip_smoke.train_phase``: K2 and K3
-as autograd Functions at yi-6b's and mamba2-2.7b's training shapes
+as custom ops at yi-6b's and mamba2-2.7b's training shapes
 (forward against the plain version, gradients bit for bit against
 autograd of the plain function, forward + backward timed), five steps
 of yi-6b and of mamba2-2.7b at full width and four layers in float32
