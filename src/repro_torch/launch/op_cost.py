@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import collections
 import math
-import sys
 import weakref
 
 import torch
@@ -153,20 +152,51 @@ def _kernel_cost(name: str, args) -> tuple:
     return work(b, l, h, p, B.shape[-1], x.element_size())
 
 
-def _shape_inference(depth: int = 24) -> bool:
-    """Whether the op being dispatched is DTensor running it on fake
-    tensors of the global shape to learn its output's shape (sharding
-    propagation): no rank runs that op, so it is not counted.  Whether
-    such an op reaches this mode at all depends on the fake mode around
-    it, so a real and a fake run would otherwise count differently."""
-    frame = sys._getframe(2)
-    for _ in range(depth):
-        if frame is None:
-            return False
-        if frame.f_code.co_name.startswith("_propagate_tensor_meta"):
-            return True
-        frame = frame.f_back
-    return False
+# DTensor's sharding propagator runs an op on fake tensors of the global
+# shape to learn its output's shape, in one of these functions (by torch
+# release; each of them that the propagator has is flagged)
+_SHAPE_INFERENCE = ("_propagate_tensor_meta_non_cached",
+                    "_propagate_tensor_meta_cached",
+                    "_propagate_tensor_meta")
+
+
+def _hook_shape_inference(counter):
+    """Flag ``counter`` while DTensor infers an op's output shape on fake
+    tensors of the global shape: no rank runs those ops, so they are not
+    counted (and whether they reach the counter at all depends on the
+    fake mode around it, so a real and a fake run would otherwise count
+    differently).  Raises where this torch's propagator has none of
+    :data:`_SHAPE_INFERENCE`, so that a renamed function fails here and
+    does not count global-shape ops as the step's.  Returns the undo."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = [n for n in _SHAPE_INFERENCE if hasattr(prop, n)]
+    if not names:
+        raise RuntimeError(
+            "DTensor's sharding propagator has none of "
+            f"{_SHAPE_INFERENCE}: the counter cannot tell its shape "
+            "inference from the step's ops in this torch")
+    own = {n: prop.__dict__.get(n) for n in names}
+
+    def flagged(inner):
+        def inferring(*args, **kwargs):
+            counter.shape_inference_calls += 1
+            counter._inferring += 1
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                counter._inferring -= 1
+        return inferring
+    for n in names:
+        setattr(prop, n, flagged(getattr(prop, n)))
+
+    def undo():
+        for n, f in own.items():
+            if f is None:
+                delattr(prop, n)
+            else:
+                setattr(prop, n, f)
+    return undo
 
 
 class CostCounter(TorchDispatchMode):
@@ -187,6 +217,19 @@ class CostCounter(TorchDispatchMode):
         self._live: dict = {}
         self._live_bytes = 0
         self.temp_peak_bytes = 0
+        self.shape_inference_calls = 0
+        self._inferring = 0
+        self._undo = None
+
+    def __enter__(self):
+        self._undo = _hook_shape_inference(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._undo()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -194,7 +237,7 @@ class CostCounter(TorchDispatchMode):
             return NotImplemented   # count DTensor's local ops instead
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not _shape_inference():
+        if not self._inferring:
             self._count(func, args, kwargs, out)
         return out
 

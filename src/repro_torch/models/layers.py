@@ -235,6 +235,17 @@ def project(eq: str, x, w):
     return _local_map(local, (xp, wp), op, mesh)(x, w)
 
 
+def _vocab_shard_pick(pick, ids, vi: int, vl: int):
+    """``pick(i)`` for the ids that vocab shard ``vi`` (of ``vl`` ids)
+    holds, ``i`` an id's offset in the shard, and zero for the others
+    (whose offsets are clamped into the shard)."""
+    idx = ids.long() - vi * vl
+    ok = (idx >= 0) & (idx < vl)
+    got = pick(idx.clamp(0, vl - 1))
+    return torch.where(ok.reshape(ok.shape + (1,) * (got.dim() - ok.dim())),
+                       got, 0.0)
+
+
 def embed_lookup(table, tokens):
     """``table[tokens]``.  On a DTensor table the lookup runs on every
     rank's shards: the table gathered over its embed dim (the FSDP axes)
@@ -261,9 +272,7 @@ def embed_lookup(table, tokens):
     def local(table, tokens):
         if vn == 1:
             return table[tokens]
-        idx = tokens.long() - vi * vl
-        ok = (idx >= 0) & (idx < vl)
-        return torch.where(ok[..., None], table[idx.clamp(0, vl - 1)], 0.0)
+        return _vocab_shard_pick(lambda i: table[i], tokens, vi, vl)
 
     out = _local_map(local, (tp, kp), op, mesh)(table, tokens)
     # reduce here: an elementwise op on a Partial sum makes DTensor
@@ -567,28 +576,39 @@ def moe_block(cfg, p, x):
         gg = torch.einsum("gEce,Eef->gEcf", buf, wg)
         hh = activation(gg, cfg.act) * hh
         hh = logical(hh, ("batch", "act_experts", None, "act_mlp"))
-        return torch.einsum("gEcf,Efe->gEce", hh, wo)
+        yy = torch.einsum("gEcf,Efe->gEce", hh, wo)
+        return yy.reshape(yy.shape[0], -1, yy.shape[-1])
 
     if is_dtensor(xt):
-        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor import Partial, Replicate, Shard
         mesh = xt.device_mesh
         bp = logical_placements(("batch", None, None), xt.shape,
                                 device_mesh=mesh)
         scatter = _local_map(scatter, ([Replicate()] * mesh.ndim, bp),
                              (bp,) * 5, mesh)
         combine = _local_map(combine, (bp,) * 5, bp, mesh)
-        # the experts' products on each (group, expert) shard, their
-        # weights gathered over the FSDP axis: DTensor's einsum views
-        # the permuted shards of these products as if they were dense
-        ep = logical_placements(("batch", "act_experts", None, None),
-                                (groups, E, cap, e), device_mesh=mesh)
-        wp = [logical_placements(("experts", None, None), p[w].shape,
-                                 device_mesh=mesh) for w in ("wi", "wg",
-                                                              "wo")]
-        experts = _local_map(experts, [ep] + wp, ep, mesh)
+        # the experts' products on each (group, expert, f) shard of hh,
+        # placed by its act_mlp site: f is split where the experts are
+        # not (fewer experts than the model axis), wo's product then a
+        # Partial sum; the weights are gathered over the FSDP axis.
+        # DTensor's einsum would view the permuted shards of these
+        # products as if they were dense, and its reshape of the
+        # Partial result leaves a shard that fake tensors cannot gather
+        hp = logical_placements(("batch", "act_experts", None, "act_mlp"),
+                                (groups, E, cap, p["wi"].shape[-1]),
+                                device_mesh=mesh)
+
+        def on(dims):  # hh's placements on an operand (hh dim -> its dim)
+            return [Shard(dims[pl.dim]) if isinstance(pl, Shard)
+                    and pl.dim in dims else Replicate() for pl in hp]
+        ep = on({0: 0, 1: 1})
+        wp, wop = on({1: 0, 3: 2}), on({1: 0, 3: 1})
+        op = [Partial() if isinstance(pl, Shard) and pl.dim == 3 else q
+              for pl, q in zip(hp, ep)]
+        experts = _local_map(experts, [ep, wp, wp, wop], op, mesh)
     st, sg, slot, keep, buf = scatter(p["router"], xt)
     buf = logical(buf, ("batch", "act_experts", None, None))
-    yy = experts(buf, p["wi"], p["wg"], p["wo"]).reshape(groups, E * cap, e)
+    yy = experts(buf, p["wi"], p["wg"], p["wo"])   # (groups, E * cap, e)
     return seq_sharded(combine(yy, st, sg, slot, keep).reshape(b, s, e))
 
 

@@ -373,10 +373,9 @@ def _gold_logits(logits, labels):
            for p in lp]
 
     def local(lg, lab):
-        idx = lab.long() - vi * vl
-        ok = (idx >= 0) & (idx < vl)
-        g = torch.gather(lg, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
-        return torch.where(ok, g, 0.0)
+        return L._vocab_shard_pick(
+            lambda i: torch.gather(lg, -1, i[..., None])[..., 0], lab, vi,
+            vl)
 
     return L._local_map(local, (lp, lab), out, mesh)(logits, labels)
 

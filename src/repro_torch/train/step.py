@@ -129,8 +129,19 @@ def place(tree, spec_tree, device_mesh):
 
 
 def _split_micro(batch, n):
-    return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
-             for k, v in batch.items()} for i in range(n)]
+    """``n`` micro-batches of contiguous rows, as the reference's reshape
+    splits the batch.  A DTensor is gathered once and each micro-batch
+    placed back on its batch placements (a local slice): DTensor would
+    gather every slice of a batch-sharded dim and leave it replicated."""
+    out = [{} for _ in range(n)]
+    for k, v in batch.items():
+        m = v.shape[0] // n
+        full = _replicated(v) if is_dtensor(v) else v
+        for i in range(n):
+            part = full[i * m:(i + 1) * m]
+            out[i][k] = part.redistribute(v.device_mesh, v.placements) \
+                if is_dtensor(v) else part
+    return out
 
 
 def value_and_grad(cfg: ModelConfig, params, batch, device_mesh=None,

@@ -15,6 +15,7 @@ Each test initialises the fake process group itself and destroys it on
 teardown.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -148,3 +149,46 @@ def test_full_width_parameter_shards_equal_the_reference_specs(arch, world):
         want += math.prod(dims) * ab.dtype.itemsize
     assert got == want
     assert torch.distributed.get_world_size() == 256
+
+
+def _active_params(cfg, layers_only=False) -> int:
+    """Parameters a token meets: every leaf but the experts' weights, and
+    ``experts_per_tok`` of the ``num_experts`` experts' weights (the
+    layers' alone with ``layers_only``)."""
+    spec = model_shardings(cfg, _StandIn((1, 1), ("data", "model")))[1]
+    total = expert = 0
+    for path, ab in tree_items(spec):
+        if layers_only and path[0] != "layers":
+            continue
+        n = math.prod(ab.shape)
+        total += n
+        if path[-1] in ("wi", "wg", "wo") and cfg.num_experts:
+            expert += n
+    return total - expert + expert * cfg.experts_per_tok // cfg.num_experts
+
+
+@pytest.mark.parametrize("arch", ("mixtral_8x22b", "grok_1_314b"))
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+def test_moe_cell_flops_near_the_active_parameter_count(
+        arch, kind, tmp_path, monkeypatch, world):
+    """Two layers at full width, a batch of 16 sequences of 256 on a
+    (16, 16) mesh: 8 experts do not divide the model axis of 16, so the
+    experts' products split over their hidden width.  Rank 0's FLOPs
+    are held between 1 and 2 times 6 (train) or 2 (prefill, the layers'
+    parameters: it unembeds the last position only) times the active
+    parameters times tokens / 256: remat's recomputed forward (4/3), the
+    capacity factor's spare expert slots (1.25) and attention stay well
+    inside it; experts computed whole on every rank of the model axis
+    would come to 10 times or more."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    monkeypatch.setattr(dryrun, "get_config", lambda name: cfg)
+    monkeypatch.setitem(mc.SHAPES, "moe_cell",
+                        mc.ShapeConfig("moe_cell", kind, 256, 16))
+    world(256)
+    rec = dryrun.run_cell(arch, "moe_cell", _layout(16, 16), str(tmp_path),
+                          "16x16", device="cpu")
+    assert rec["status"] == "ok", rec.get("error")
+    per_token = 6 if kind == "train" else 2
+    model = per_token * _active_params(cfg, kind == "prefill") * 16
+    ratio = rec["cost"]["flops"] / model
+    assert 1.0 <= ratio <= 2.0, ratio

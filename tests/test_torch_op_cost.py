@@ -1,7 +1,9 @@
 """The port's op-level cost counter (``launch/op_cost.py``), as
 ``tests/test_hlo_cost.py`` holds the reference's HLO cost model: exact
 matrix-product FLOPs, an eager loop counted every time it runs, a
-collective by type and bytes on a fake (2, 2) mesh, the two kernels by
+collective by type and bytes on a fake (2, 2) mesh, DTensor's shape
+inference left out (and a torch that renames it refused), the two
+kernels by
 their ``kernel.work`` formulas, and a 2-layer dense model's loss against
 the reference's ``analyze`` of the same loss compiled (within 10 %).
 """
@@ -106,6 +108,36 @@ def test_sharded_matmul_counts_its_collective(fake_world_of_four):
     assert r["collective_total_bytes"] == 4 * 32 * 4
     assert r["collective_bytes_by_group"] == {
         mesh.get_group("model").group_name: 4 * 32 * 4}
+
+
+def test_shape_inference_is_not_counted(fake_world_of_four):
+    """Under ``FakeTensorMode`` DTensor infers a new op's output shape by
+    running it on fake tensors of the global shape (here (16, 24) @ (24,
+    40), a shape no other test uses, so no cache holds it): the counter
+    sees that call and counts only rank 0's local product."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(16, 24), mesh,
+                              [Shard(0), Replicate()], src_data_rank=None)
+        w = distribute_tensor(torch.empty(24, 40), mesh,
+                              [Replicate(), Shard(1)], src_data_rank=None)
+        with CostCounter() as c:
+            y = x @ w
+    assert tuple(y.to_local().shape) == (8, 20)
+    assert c.shape_inference_calls > 0
+    assert c.result()["flops"] == 2 * 8 * 20 * 24
+
+
+def test_a_torch_without_the_shape_inference_hook_fails_loudly(monkeypatch):
+    from repro_torch.launch import op_cost
+    monkeypatch.setattr(op_cost, "_SHAPE_INFERENCE", ("_no_such_function",))
+    with pytest.raises(RuntimeError, match="shape inference"):
+        with CostCounter():
+            pass
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

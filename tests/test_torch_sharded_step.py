@@ -13,8 +13,14 @@ of leaves whose gradient is near that epsilon.  The
 models: a reduced dense model with grouped-query attention whose one kv
 head is fewer than the model axis (each shard's query heads must meet
 their own kv head), a reduced mixtral (the MoE dispatch per batch
-shard, the experts sharded) and a reduced mamba2 (the SSD kernel's
-heads sharded, the conv per batch shard, the recurrent decode).
+shard, the experts sharded), the same with 3 experts, which the model
+axis does not divide (the experts' products then split over their
+hidden width, as mixtral's and grok's 8 experts on a model axis of 16
+are), and a reduced mamba2 (the SSD kernel's heads sharded, the conv
+per batch shard, the recurrent decode).  Every gradient must come back
+on its parameter's placements; a micro-batched step (two micro-batches,
+each sharded over the data axis) is held against the unsharded
+micro-batched step.
 """
 
 import threading
@@ -41,6 +47,7 @@ LAYOUT = MeshLayout(np.arange(WORLD).reshape(2, 2), ("data", "model"))
 CONFIGS = {
     "dense-gqa": ("yi_6b", dict(num_heads=4, num_kv_heads=1)),
     "moe": ("mixtral_8x22b", {}),
+    "moe-unsplit-experts": ("mixtral_8x22b", dict(num_experts=3)),
     "ssm": ("mamba2_2p7b", {}),
 }
 
@@ -111,14 +118,17 @@ def _close(got: dict, want: dict):
         assert err <= TOL * scale, (key, err, scale)
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_sharded_train_step_equals_the_unsharded_step(name):
+@pytest.mark.parametrize("name,micro", [
+    *(pytest.param(n, 1, id=n) for n in CONFIGS),
+    *(pytest.param(n, 2, id=f"{n}-micro2")
+      for n in ("dense-gqa", "moe-unsplit-experts"))])
+def test_sharded_train_step_equals_the_unsharded_step(name, micro):
     cfg = _cfg(name)
     opt = OptConfig(warmup_steps=1)
     params = init_params(cfg, 0, device="cpu")
     batch = _batch(cfg)
     loss0, grads0 = value_and_grad(cfg, params, batch)
-    _, _, m1 = make_train_step(cfg, opt, device="cpu")(
+    _, _, m1 = make_train_step(cfg, opt, microbatch=micro, device="cpu")(
         tree_map(torch.clone, params), init_state(opt, params), dict(batch))
 
     def rank(r):
@@ -128,7 +138,11 @@ def test_sharded_train_step_equals_the_unsharded_step(name):
         placed = place(own, model_shardings(cfg, mesh)[0], mesh)
         loss, grads = value_and_grad(cfg, placed, place(
             dict(batch), {k: ("data",) for k in batch}, mesh), mesh)
-        step = make_train_step(cfg, opt, LAYOUT, device="cpu")
+        for (key, g), (_, p) in zip(tree_items(grads), tree_items(placed)):
+            assert g.placements == p.placements, (key, g.placements,
+                                                  p.placements)
+        step = make_train_step(cfg, opt, LAYOUT, microbatch=micro,
+                               device="cpu")
         assert step.device_mesh is not None
         new, _, metrics = step(own, init_state(opt, own), dict(batch))
         assert all(hasattr(v, "placements") for v in
@@ -139,7 +153,8 @@ def test_sharded_train_step_equals_the_unsharded_step(name):
 
     for loss, grads, step_loss, gnorm in _on_ranks(rank):
         assert abs(loss - float(loss0)) <= TOL * abs(float(loss0))
-        assert abs(step_loss - float(m1["loss"])) <= TOL * abs(float(loss0))
+        assert abs(step_loss - float(m1["loss"])) <= \
+            TOL * abs(float(m1["loss"]))
         assert abs(gnorm - float(m1["grad_norm"])) <= \
             TOL * float(m1["grad_norm"])
         _close(grads, _full(grads0))
