@@ -86,6 +86,8 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    dims 16 to 128, windows 16 / 48 with caps 0 / 30, gemma2-27b's local
    layer (S=8192, window 4096, cap 50), yi-6b's prefill (B=4, S=4000,
    H=32, KH=4, D=128) and zamba2-1.2b's (B=4, S=256, H=KH=32, D=64),
+   one rank's shard of phase ``elastic``'s yi-6b step on (2, 2) and on
+   (4, 1) (B=2 / 1, S=512, H=16 / 32, KH=2 / 4, D=128),
    float32 at 2e-5 and bfloat16 at 4e-3 + 8e-3·|o| (two ulp); a second
    launch must be bit-identical; at the three bfloat16 model shapes the
    kernel, the plain version, the bound and ``scaled_dot_product_attention``
@@ -195,6 +197,22 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    ``ok``, its argument bytes equal to the spec arithmetic
    (``spec_bytes``) and below the card's memory, collectives in the train
    cell; each cell's seconds print.
+14. ``elastic`` — sharded checkpoints and the elastic restore: yi-6b at
+   full width, 2 of its 32 layers, float32, ``remat="full"``, 4 x 512
+   ``SyntheticLM`` tokens a step, default ``OptConfig``, four ranks of
+   torch's threaded process group on card 0.  ``train_with_restarts`` on
+   a (2, 2) ``("data", "model")`` mesh saves at step 2 (shard by shard)
+   and fails at step 3; its files must be byte-equal to an unsharded
+   ``save`` of the same state gathered on the card.  The step-2
+   checkpoint restored whole onto the card (no mesh) must equal that
+   state bit for bit and takes steps 2 and 3; ``train`` resumes the job
+   on a (4, 1) mesh (every restored shard bit-equal to its slice of the
+   saved state, ``"[train] resumed from step 2"`` logged, K2 16 times a
+   step: four ranks, forward and recompute of 2 layers), and the same 4
+   steps run uninterrupted on (2, 2): both resumes' final loss within
+   ``ELASTIC_TOL`` of it (bit-equality reported).  The checkpoint's
+   bytes, write and read seconds and GB/s, step ms on each mesh and the
+   wall time print.
 
 With ``--profile`` more ``profile`` lines give the device time by
 kernel and copy name (``torch.profiler``) with the device's idle share:
@@ -745,6 +763,10 @@ ATTN_CASES = [
     ("yi-6b-prefill", 4, 4000, 32, 4, 128, "float32", 0, 0.0),
     ("yi-6b-prefill", 4, 4000, 32, 4, 128, "bfloat16", 0, 0.0),
     ("zamba2-1.2b-prefill", 4, 256, 32, 32, 64, "bfloat16", 0, 0.0),
+    # one rank's shard of phase elastic's yi-6b step (4 x 512 tokens):
+    # the batch split over data, the heads over model
+    ("yi-6b-elastic-2x2-shard", 2, 512, 16, 2, 128, "float32", 0, 0.0),
+    ("yi-6b-elastic-4x1-shard", 1, 512, 32, 4, 128, "float32", 0, 0.0),
 ]
 ATTN_TIMED = ("yi-6b-prefill", "bfloat16")   # the kernels line's shape
 # every timed shape: yi-6b's prefill, gemma2-27b's local layer (the
@@ -2174,6 +2196,288 @@ def dryrun_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: sharded checkpoints and the elastic restore
+# ---------------------------------------------------------------------------
+
+# yi-6b at full width, cut to 2 of 32 layers (float32, remat="full"),
+# global batch 4 x 512 SyntheticLM tokens, default OptConfig; the job
+# saves at step 2 on (2, 2) and fails at step 3
+ELASTIC_LAYERS, ELASTIC_BATCH, ELASTIC_SEQ = 2, 4, 512
+ELASTIC_STEPS, ELASTIC_SAVE, ELASTIC_FAIL = 4, 2, 3
+ELASTIC_TOL = 1e-5      # final loss, relative, against the uninterrupted run
+ELASTIC_MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
+
+
+def on_threads(world: int, fn, timeout: float = 600) -> list:
+    """``fn(rank)`` on ``world`` threads of torch's threaded process
+    group (every rank on card 0); the results by rank.  The first rank's
+    exception is raised here, as is a rank still running after
+    ``timeout`` seconds."""
+    import threading
+    import traceback
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        _install_threaded_pg, _uninstall_threaded_pg)
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    world_state = _install_threaded_pg()
+    store = dist.HashStore()
+    results, errors = [None] * world, []
+
+    def worker(rank):
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=world,
+                                    store=store)
+            results[rank] = fn(rank)
+        except BaseException:  # noqa: BLE001 - raised below
+            errors.append(traceback.format_exc())
+        finally:
+            # torch 2.11's threaded world has no ``comms`` and cannot be
+            # destroyed; its groups are the thread's own and end with it
+            if hasattr(world_state, "comms"):
+                dist.destroy_process_group()
+
+    threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+               for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout)
+        check(not any(t.is_alive() for t in threads),
+              f"a threaded rank still runs after {timeout} s")
+    finally:
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    check(not errors, f"a threaded rank failed:\n{errors[:1]}")
+    return results
+
+
+def same_bytes(a: str, b: str, chunk: int = 1 << 26) -> bool:
+    """Whether the two directories hold the same file names and bytes."""
+    if sorted(os.listdir(a)) != sorted(os.listdir(b)):
+        return False
+    for name in os.listdir(a):
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            while True:
+                x, y = fa.read(chunk), fb.read(chunk)
+                if x != y:
+                    return False
+                if not x:
+                    break
+    return True
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def elastic_phase() -> dict:
+    """Phase 14: a yi-6b job (full width, ``ELASTIC_LAYERS`` layers) on a
+    (2, 2) mesh of four threaded ranks on card 0 saves at step 2 and
+    fails at step 3; it resumes on (4, 1) and, restored whole, on the
+    card alone; the same steps run uninterrupted on (2, 2)."""
+    import dataclasses
+    import shutil
+    from unittest import mock
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.meshmap import MeshLayout
+    from repro_torch.models import count_params, params_spec, tree_abstract
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding.rules import shard_slices
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.driver import (JobConfig, train,
+                                          train_with_restarts)
+    from repro_torch.train.optimizer import OptConfig, abstract_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import tree_items
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MODEL), num_layers=ELASTIC_LAYERS,
+                              dtype="float32", remat="full")
+    check(cfg.attn_impl == "hopper", "elastic: not through the kernel")
+    opt = OptConfig()
+    shape = ShapeConfig("elastic", "train", ELASTIC_SEQ, ELASTIC_BATCH)
+    layouts = {k: MeshLayout(np.arange(4).reshape(v), ("data", "model"))
+               for k, v in ELASTIC_MESHES.items()}
+    root = os.path.join(OUT_DIR, "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    ck, whole = os.path.join(root, "ckpt"), os.path.join(root, "unsharded")
+    step_dir = os.path.join(ck, f"step_{ELASTIC_SAVE:09d}")
+    rec = {"model": MODEL, "layers": cfg.num_layers,
+           "of_layers": get_config(MODEL).num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": count_params(params_spec(cfg)), "dtype": cfg.dtype,
+           "remat": cfg.remat, "batch": [ELASTIC_BATCH, ELASTIC_SEQ],
+           "ranks": "4 threads of torch's threaded process group, card 0",
+           "reduced": [f"layers {ELASTIC_LAYERS} of 32 (width uncut)"]}
+
+    # (1) the (2, 2) job: saves at step 2 (the state gathered beside the
+    # save), fails at step 3
+    saved, secs = {}, {}
+
+    def gathering(real):
+        def save(ckpt_dir, step, tree, **kw):
+            for key, v in tree_items(tree):
+                # a copy: a replicated leaf's full_tensor() is its local
+                # tensor, which the next step updates in place
+                full = v.full_tensor()
+                if dist.get_rank() == 0:
+                    saved["/".join(key)] = full.clone()
+                del full
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(ckpt_dir, step, tree, **kw)
+            if dist.get_rank() == 0:
+                secs["sharded_write_s"] = time.perf_counter() - t0
+            return out
+        return save
+
+    def failing(rank):
+        logs = []
+        try:
+            train_with_restarts(
+                cfg, opt, JobConfig(steps=ELASTIC_STEPS, ckpt_dir=ck,
+                                    ckpt_every=ELASTIC_SAVE, log_every=1,
+                                    fail_at_step=ELASTIC_FAIL),
+                layouts["2x2"], max_restarts=0, shape=shape,
+                log=logs.append, device="cuda")
+        except RuntimeError as e:
+            if str(e) != f"simulated failure at step {ELASTIC_FAIL}":
+                raise
+            return logs
+        check(False, "elastic: the (2, 2) job did not fail")
+
+    with mock.patch.object(ckpt, "save", gathering(ckpt.save)):
+        logs = on_threads(4, failing)[0]
+    check(ckpt.all_steps(ck) == [ELASTIC_SAVE],
+          f"elastic: checkpoints {ckpt.all_steps(ck)}")
+    rec["failed_run_log"] = logs
+    rec["checkpoint_bytes"] = dir_bytes(step_dir)
+    rec["sharded_write_s"] = secs["sharded_write_s"]
+    rec["sharded_write_gb_per_s"] = (rec["checkpoint_bytes"]
+                                     / secs["sharded_write_s"] / 1e9)
+
+    # the files against an unsharded save of the same state on the card
+    t0 = time.perf_counter()
+    ckpt.save(whole, ELASTIC_SAVE, saved)
+    rec["unsharded_write_s"] = time.perf_counter() - t0
+    rec["files_byte_equal"] = same_bytes(
+        step_dir, os.path.join(whole, f"step_{ELASTIC_SAVE:09d}"))
+    check(rec["files_byte_equal"],
+          "elastic: the sharded save's files differ from the unsharded "
+          "save's")
+    shutil.rmtree(whole)
+
+    # (4) the step-2 checkpoint restored whole onto the card (mesh=None),
+    # as train() restores it without a mesh, then steps 2 and 3 there
+    pab = tree_abstract(params_spec(cfg), cfg.dtype)
+    like = {"params": pab, "opt": abstract_state(opt, pab)}
+    t0 = time.perf_counter()
+    one = ckpt.restore(ck, ELASTIC_SAVE, like, device="cuda")
+    torch.cuda.synchronize()
+    rec["one_card_read_s"] = time.perf_counter() - t0
+    check(all(torch.equal(v, saved["/".join(k)]) for k, v in
+              tree_items(one)), "elastic: the one-card restore differs "
+                                "from the saved state")
+    data = SyntheticLM(cfg.vocab_size, ELASTIC_SEQ, ELASTIC_BATCH, seed=0)
+    step_fn = make_train_step(cfg, opt, device="cuda")
+    params, state, one_loss, one_s = one["params"], one["opt"], [], []
+    for s in range(ELASTIC_SAVE, ELASTIC_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, data.np_batch(s))
+        one_loss.append(float(m["loss"]))
+        one_s.append(time.perf_counter() - t0)
+    del one, params, state, step_fn, m
+    torch.cuda.empty_cache()
+
+    # (2) the same job resumed on (4, 1): every restored shard against
+    # the same slice of the saved state; K2 counted in the resumed steps
+    shards = []
+
+    def comparing(real):
+        def restore(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            equal = True
+            for key, v in tree_items(out):
+                idx, _ = shard_slices(tuple(v.shape), v.placements,
+                                      v.device_mesh)
+                equal &= torch.equal(v.to_local(), saved["/".join(key)][idx])
+            shards.append((dist.get_rank(), equal, dt))
+            return out
+        return restore
+
+    def resumed(rank):
+        logs = []
+        h = train(cfg, opt, JobConfig(
+            steps=ELASTIC_STEPS, ckpt_dir=ck, log_every=1,
+            ckpt_every=ELASTIC_STEPS + 1), layouts["4x1"], shape=shape,
+            log=logs.append, device="cuda")
+        return logs, h["loss"], h["step_s"]
+
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    with mock.patch.object(ckpt, "restore", comparing(ckpt.restore)):
+        logs, resumed_loss, resumed_s = on_threads(4, resumed)[0]
+    rec["resume_4x1_s"] = time.perf_counter() - t0
+    launches = kernel_counts()
+    saved.clear()
+    torch.cuda.empty_cache()
+    check(logs[0] == f"[train] resumed from step {ELASTIC_SAVE}",
+          f"elastic: the (4, 1) job did not resume: {logs[:2]}")
+    check(len(shards) == 4 and all(eq for _, eq, _ in shards),
+          f"elastic: restored shards against the saved state: {shards}")
+    per_step = 2 * cfg.num_layers      # remat: the forward and its recompute
+    want = 4 * per_step * (ELASTIC_STEPS - ELASTIC_SAVE)
+    check(launches["flash_attention"] == want,
+          f"elastic: {launches['flash_attention']} K2 launches in the "
+          f"resumed steps, expected {want}")
+    check(sum(launches.values()) == launches["flash_attention"],
+          f"elastic: another kernel launched: {launches}")
+    rec["resumed_log"] = logs[:1]
+    rec["restored_shards_bit_equal"] = True
+    rec["read_4x1_s"] = max(dt for _, _, dt in shards)
+    rec["final_checkpoint_bytes"] = dir_bytes(
+        os.path.join(ck, f"step_{ELASTIC_STEPS:09d}"))
+    rec["launches"] = launches
+
+    # (3) the same steps uninterrupted on (2, 2)
+    def uninterrupted(rank):
+        h = train(cfg, opt, JobConfig(steps=ELASTIC_STEPS, log_every=0),
+                  layouts["2x2"], shape=shape, log=lambda *a: None,
+                  device="cuda")
+        return h["loss"], h["step_s"]
+
+    ref_loss, ref_s = on_threads(4, uninterrupted)[0]
+    final = ref_loss[-1]
+    for name, got in (("4x1", resumed_loss[-1]), ("one_card", one_loss[-1])):
+        gap = abs(got - final) / abs(final)
+        rec[f"{name}_final_loss"] = got
+        rec[f"{name}_rel_gap"] = gap
+        rec[f"{name}_bit_equal"] = got == final
+        check(gap <= ELASTIC_TOL, f"elastic: {name} resume's final loss "
+                                  f"{gap} from the uninterrupted run's")
+    rec.update(uninterrupted_losses=ref_loss, resumed_4x1_losses=resumed_loss,
+               one_card_losses=one_loss, tol=ELASTIC_TOL,
+               step_ms={"2x2": [s * 1e3 for s in ref_s],
+                        "4x1": [s * 1e3 for s in resumed_s],
+                        "one_card": [s * 1e3 for s in one_s]})
+    rec["read_gb_per_s"] = rec["checkpoint_bytes"] / rec["read_4x1_s"] / 1e9
+    shutil.rmtree(root, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit("elastic", **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # optional phase: where the device's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -3399,6 +3703,9 @@ def main(argv=None) -> int:
     # -- phase 13: the dry run ------------------------------------------------
     dry = dryrun_phase()
 
+    # -- phase 14: sharded checkpoints and the elastic restore ----------------
+    elastic = elastic_phase()
+
     # -- the hier phase's all-numpy latency answers, after every timed phase
     emit("hier_numpy", requests=numpy_oracles(
         mapping["hier"]["requests"], args.scale, args.rotations),
@@ -3414,7 +3721,8 @@ def main(argv=None) -> int:
                 **{p: families[p]["bfloat16"]["generate_launches"]
                    ["flash_attention"] for p in families},
                 "train": train["launches"]["flash_attention"],
-                "dryrun": dry["step"]["k2_launches"]}
+                "dryrun": dry["step"]["k2_launches"],
+                "elastic": elastic["launches"]["flash_attention"]}
     k3_paths = {"ssm_model_long_prefill":
                     ssm["bfloat16"]["long_prefill_launches"]["ssd"],
                 "train": train["launches"]["ssd"]}

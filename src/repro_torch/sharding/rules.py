@@ -22,6 +22,11 @@ reference's ``with mesh:``; under it :func:`logical` redistributes a
 DTensor to its logical axes' placements, the reference's
 ``with_sharding_constraint``.  A plain tensor passes through
 :func:`logical` untouched, so a one-card step keeps its bits.
+
+:func:`shard_slices` is the arithmetic of the checkpoints: this rank's
+slice of a global shape under its placements, and whether it is that
+slice's first holder (which writes the shard in a sharded save; each
+rank reads its own slice in the elastic restore).
 """
 
 from __future__ import annotations
@@ -215,6 +220,32 @@ def local_shape(shape, placements, device_mesh) -> tuple:
         if isinstance(pl, Shard):
             out[pl.dim] //= device_mesh.size(m)
     return tuple(out)
+
+
+def shard_slices(shape, placements, device_mesh, name: str = "") -> tuple:
+    """``(slices, first)``: this rank's slice of a tensor of global
+    ``shape`` under ``placements`` (one ``slice`` a tensor dim; where
+    several mesh dims shard one tensor dim, the earlier mesh dim is the
+    major one, as :func:`placements_for` orders them), and whether this
+    rank is the slice's first holder — at coordinate 0 on every mesh dim
+    that does not shard the tensor.  A mesh dim that does not divide its
+    tensor dim raises ``ValueError`` naming ``name`` and the dim, as the
+    reference's ``jax.make_array_from_callback`` refuses it."""
+    coord = device_mesh.get_coordinate()
+    start, size, first = [0] * len(shape), list(shape), True
+    for m, pl in enumerate(placements):
+        n = device_mesh.size(m)
+        if not isinstance(pl, Shard):
+            first = first and coord[m] == 0
+            continue
+        d = pl.dim
+        if size[d] % n:
+            raise ValueError(f"{name or 'tensor'} of shape {tuple(shape)}: "
+                             f"dim {d} ({size[d]}) does not divide into "
+                             f"{n} shards of mesh dim {m}")
+        size[d] //= n
+        start[d] += coord[m] * size[d]
+    return tuple(slice(a, a + k) for a, k in zip(start, size)), first
 
 
 def placed(local, shape, placements, device_mesh):

@@ -11,6 +11,15 @@ a fresh run here starts from other weights than the reference's run of
 the same seed — the one place where the two packages' numbers differ by
 construction.  Tests that compare the two carry one set of weights
 across with ``params_from_numpy``.
+
+On a mesh (a :class:`~repro_torch.meshmap.MeshLayout` or a
+``DeviceMesh``, as :func:`~repro_torch.train.step.make_train_step`
+takes it) every rank runs :func:`train`: the checkpoints are saved
+shard by shard (:func:`~repro_torch.train.checkpoint.save`), and a
+resume restores them onto the resuming job's own mesh — which need not
+be the mesh that saved, nor a mesh at all — by the step's partition
+specs (the elastic restore), so its next step places nothing.  Every
+rank logs.
 """
 
 from __future__ import annotations
@@ -21,12 +30,13 @@ import time
 import numpy as np
 
 from repro_torch.device import resolve_device
-from repro_torch.models import ModelConfig, init_params
+from repro_torch.models import (ModelConfig, init_params, params_spec,
+                                tree_abstract)
 
 from . import checkpoint as ckpt
 from .data import SyntheticLM
-from .optimizer import OptConfig, init_state
-from .step import make_train_step
+from .optimizer import OptConfig, abstract_state, init_state
+from .step import make_train_step, model_shardings, opt_shardings
 
 
 class StragglerMonitor:
@@ -65,9 +75,10 @@ class JobConfig:
 def train(cfg: ModelConfig, opt_cfg: OptConfig, job: JobConfig, mesh=None,
           *, data: SyntheticLM | None = None, shape=None, rules=None,
           log=print, device="cuda") -> dict:
-    """Run (or resume) a training job on ``device``.  Returns the history
-    dict: per-step ``loss`` (floats) and ``steps``, the ``stragglers``
-    flagged, and the final ``params``."""
+    """Run (or resume) a training job on ``device``, or on ``mesh``
+    (every rank calls it).  Returns the history dict: per-step ``loss``
+    (floats), ``steps`` and wall seconds ``step_s``, the ``stragglers``
+    flagged, and the final ``params`` (DTensors on a mesh)."""
     dev = resolve_device(device)
     if data is None:
         if shape is None:
@@ -76,21 +87,28 @@ def train(cfg: ModelConfig, opt_cfg: OptConfig, job: JobConfig, mesh=None,
                            shape.global_batch, seed=job.seed)
     step_fn = make_train_step(cfg, opt_cfg, mesh, rules=rules,
                               microbatch=job.microbatch, device=dev)
-    start = 0
-    params = init_params(cfg, job.seed, dev)
-    opt_state = init_state(opt_cfg, params)
-    if job.ckpt_dir:
-        last = ckpt.latest_step(job.ckpt_dir)
-        if last is not None:
-            restored = ckpt.restore(job.ckpt_dir, last,
-                                    {"params": params, "opt": opt_state},
-                                    device=dev)
-            params, opt_state = restored["params"], restored["opt"]
-            start = last
-            log(f"[train] resumed from step {last}")
+    dmesh = step_fn.device_mesh
+    last = ckpt.latest_step(job.ckpt_dir) if job.ckpt_dir else None
+    if last is None:
+        start = 0
+        params = init_params(cfg, job.seed, dev)
+        opt_state = init_state(opt_cfg, params)
+    else:
+        pab = tree_abstract(params_spec(cfg), cfg.dtype)
+        like = {"params": pab, "opt": abstract_state(opt_cfg, pab)}
+        shardings = None if dmesh is None else {
+            "params": model_shardings(cfg, dmesh, rules)[0],
+            "opt": opt_shardings(opt_cfg, cfg, dmesh, rules)[0]}
+        restored = ckpt.restore(job.ckpt_dir, last, like,
+                                shardings=shardings, device_mesh=dmesh,
+                                device=dev)
+        params, opt_state = restored["params"], restored["opt"]
+        start = last
+        log(f"[train] resumed from step {last}")
 
     monitor = StragglerMonitor()
-    history = {"loss": [], "steps": [], "stragglers": monitor.flagged}
+    history = {"loss": [], "steps": [], "stragglers": monitor.flagged,
+               "step_s": monitor.durations}
     for step in range(start, job.steps):
         if step == job.fail_at_step:
             raise RuntimeError(f"simulated failure at step {step}")

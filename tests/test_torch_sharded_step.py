@@ -67,21 +67,21 @@ def _batch(cfg, b=4, s=16, seed=0):
                                      .astype(np.float32))}
 
 
-def _on_ranks(fn):
-    """``fn(rank)`` on each of WORLD threads of a threaded process group;
-    the results by rank.  Every thread is joined with a timeout, and the
-    first rank's exception is raised here."""
+def _on_ranks(fn, world=WORLD):
+    """``fn(rank)`` on each of ``world`` threads of a threaded process
+    group; the results by rank.  Every thread is joined with a timeout,
+    and the first rank's exception is raised here."""
     from torch.testing._internal.distributed.multi_threaded_pg import (
         _install_threaded_pg, _uninstall_threaded_pg)
     torch._C._distributed_c10d._set_thread_isolation_mode(True)
     _install_threaded_pg()
     store = dist.HashStore()
-    results, errors = [None] * WORLD, []
+    results, errors = [None] * world, []
 
     def worker(rank):
         try:
             dist.init_process_group("threaded", rank=rank,
-                                    world_size=WORLD, store=store)
+                                    world_size=world, store=store)
             results[rank] = fn(rank)
         except BaseException:  # noqa: BLE001 - reported below
             errors.append(traceback.format_exc())
@@ -89,7 +89,7 @@ def _on_ranks(fn):
             dist.destroy_process_group()
 
     threads = [threading.Thread(target=worker, args=(r,))
-               for r in range(WORLD)]
+               for r in range(world)]
     try:
         for t in threads:
             t.start()
