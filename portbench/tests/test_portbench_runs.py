@@ -1,0 +1,101 @@
+"""Whole runs of every cell, past the harness's look for a card: on the
+CPU at tiny sizes the program's answers are correct, and the control and
+a planted fault come out not correct.  One run at full size needs the
+card (marked ``chip``)."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from pbench import cell as pcell
+from pbench.spec import Spec
+from pbench_tiny import BENCH_DIR, REPO, tiny_root
+
+WORKLOADS = [w["name"] for w in
+             json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
+SEED = 2 ** 31 + 101
+
+
+@pytest.fixture
+def spec(tmp_path):
+    return Spec(tiny_root(tmp_path), BENCH_DIR)
+
+
+def run(spec, workload, **kw):
+    return pcell.run_cell(spec, workload, SEED, 0.3, False, t_start=0.0,
+                          device="cpu", score_backend="torch", **kw)
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_program_answers_are_correct(spec, workload):
+    res = run(spec, workload)
+    assert res["correct"], res["checks"]
+    assert res["attempted"] > 0 and res["failed"] == 0
+    e2e = {m["name"] for m in spec.metrics("end_to_end", workload)}
+    assert set(res["metrics"]) == e2e
+    assert all(v["value"] > 0 for v in res["metrics"].values())
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_control_is_not_correct(spec, workload):
+    res = run(spec, workload, serve="control", limit=100)
+    assert not res["correct"]
+    assert res["checks"]["wrong_tasks"]["value"] > 0
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_an_answer_altered_where_it_is_made_is_not_correct(
+        spec, workload, monkeypatch):
+    from repro_torch.serve import MappingService
+    compute = MappingService._compute
+
+    def altered(self, request):
+        res = compute(self, request)
+        t2p = np.array(res.task_to_proc, copy=True)
+        t2p[[0, -1]] = t2p[[-1, 0]]            # two tasks swap cores
+        return dataclasses.replace(res, task_to_proc=t2p)
+
+    monkeypatch.setattr(MappingService, "_compute", altered)
+    res = run(spec, workload)
+    assert not res["correct"]
+    assert res["checks"]["wrong_tasks"]["value"] == 2
+
+
+def test_traced_run_reads_the_per_layer_metrics(spec):
+    res = pcell.run_cell(spec, "minighost-xk7.cold", SEED, 0.3, True,
+                         t_start=0.0, device="cpu", score_backend="torch")
+    assert res["correct"]
+    # no device on the CPU: the device's metrics have nothing to read
+    assert {"service.self_ms", "pipeline.self_ms",
+            "sweep.fused_ms"} <= set(res["metrics"])
+    assert "device.idle" not in res["metrics"]
+    assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_no_card_no_result():
+    out = subprocess.run(
+        [sys.executable, str(BENCH_DIR / "run.py"), "--workload",
+         WORKLOADS[0], "--seed", "1", "--seconds", "1", "--trace", "0"],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin",
+             "HOME": str(REPO / "build")})
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+
+
+@pytest.fixture
+def card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.chip
+def test_full_size_cell_on_the_card(card):
+    res = pcell.run_cell(Spec(REPO, BENCH_DIR), WORKLOADS[0], SEED, 3.0,
+                         False, t_start=0.0)
+    assert res["correct"], res["checks"]
