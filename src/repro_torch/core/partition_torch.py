@@ -375,11 +375,11 @@ def partition(
     device="cuda",
 ) -> torch.Tensor:
     """:func:`upload` then :func:`run` as one traced, fault-injectable
-    span (``partition.torch``): the (B, n) int64 part numbers, left on
-    ``device``."""
+    device span (``partition.torch``): the (B, n) int64 part numbers,
+    left on ``device``."""
     from repro_torch import obs
     with obs.span("partition.torch", points=len(coords), nparts=int(nparts),
-                  batch=len(dim_orders), device=str(device)):
+                  batch=len(dim_orders), device=device):
         return run(upload(coords, nparts, sfc, dim_orders=dim_orders,
                           weights=weights, longest_dim=longest_dim,
                           uneven_prime=uneven_prime, device=device))

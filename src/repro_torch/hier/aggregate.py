@@ -23,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.orderings import order_points
 from repro_torch.core.taskgraph import TaskGraph
 
@@ -97,32 +98,34 @@ def aggregate_tasks(
                           uneven_prime=uneven_prime, backend=backend,
                           device=device)
 
-    sizes = np.bincount(labels, minlength=nclusters)
-    wv = np.ones(n) if w is None else w
-    cw = np.bincount(labels, weights=wv, minlength=nclusters)
-    # weighted centroids: one segment sum per coordinate column
-    denom = np.where(cw > 0, cw, 1.0)
-    cents = np.stack([
-        np.bincount(labels, weights=tc[:, j] * wv, minlength=nclusters)
-        / denom for j in range(d)], axis=1)
+    with obs.span("hier.contract", edges=len(graph.edges),
+                  clusters=nclusters):
+        sizes = np.bincount(labels, minlength=nclusters)
+        wv = np.ones(n) if w is None else w
+        cw = np.bincount(labels, weights=wv, minlength=nclusters)
+        # weighted centroids: one segment sum per coordinate column
+        denom = np.where(cw > 0, cw, 1.0)
+        cents = np.stack([
+            np.bincount(labels, weights=tc[:, j] * wv, minlength=nclusters)
+            / denom for j in range(d)], axis=1)
 
-    # contract the edge list: label endpoints, split intra/inter, then
-    # sum parallel inter-cluster volumes with one flat bincount over the
-    # pair key
-    ce = labels[graph.edges]
-    ew = np.asarray(graph.weights, dtype=np.float64)
-    intra = ce[:, 0] == ce[:, 1]
-    intra_volume = float(ew[intra].sum())
-    inter = ce[~intra]
-    if len(inter):
-        key = inter[:, 0] * nclusters + inter[:, 1]
-        uniq, inv = np.unique(key, return_inverse=True)
-        vol = np.bincount(inv, weights=ew[~intra], minlength=len(uniq))
-        coarse_edges = np.stack([uniq // nclusters, uniq % nclusters],
-                                axis=1)
-    else:
-        coarse_edges = np.zeros((0, 2), dtype=np.int64)
-        vol = np.zeros(0)
+        # contract the edge list: label endpoints, split intra/inter, then
+        # sum parallel inter-cluster volumes with one flat bincount over the
+        # pair key
+        ce = labels[graph.edges]
+        ew = np.asarray(graph.weights, dtype=np.float64)
+        intra = ce[:, 0] == ce[:, 1]
+        intra_volume = float(ew[intra].sum())
+        inter = ce[~intra]
+        if len(inter):
+            key = inter[:, 0] * nclusters + inter[:, 1]
+            uniq, inv = np.unique(key, return_inverse=True)
+            vol = np.bincount(inv, weights=ew[~intra], minlength=len(uniq))
+            coarse_edges = np.stack([uniq // nclusters, uniq % nclusters],
+                                    axis=1)
+        else:
+            coarse_edges = np.zeros((0, 2), dtype=np.int64)
+            vol = np.zeros(0)
 
     coarse = TaskGraph(cents, coarse_edges, vol,
                        meta={"kind": "aggregated",

@@ -332,12 +332,18 @@ def map_hierarchical(
                     if pperm is not None and units.shape[1] == len(pperm):
                         units = units[:, pperm]
                     sub = np.lexsort((hilbert_key(units), m_member[i]))
-                    cur = sub[assign_cores(
-                        aggs[i].labels, cur, m_member[i][sub],
-                        child, len(m_coords[i]))]
+                    with obs.span("hier.assign_cores",
+                                  tasks=len(aggs[i].labels),
+                                  units=len(m_coords[i])):
+                        cur = sub[assign_cores(
+                            aggs[i].labels, cur, m_member[i][sub],
+                            child, len(m_coords[i]))]
                 else:
-                    t2p = assign_cores(aggs[0].labels, cur, core_router,
-                                       tc, nrouters)
+                    with obs.span("hier.assign_cores",
+                                  tasks=len(aggs[0].labels),
+                                  units=int(nrouters)):
+                        t2p = assign_cores(aggs[0].labels, cur,
+                                           core_router, tc, nrouters)
             timings["refine_s"] += sp.duration_s
             level_stats[i]["refine_s"] = sp.duration_s
             level_stats[i]["refine_accepted"] = \

@@ -16,6 +16,12 @@ word and the "every part has a processor" flag, then the winner's row.
 The winner is picked on the host from the copied matrix by
 ``candidates.first_best``, as :meth:`CandidateSearch.best` picks it.
 
+Each step is a span (``sweep.plan``, ``sweep.upload``,
+``sweep.partition``, ``sweep.score``, ``sweep.select``, then
+``sweep.refine`` or ``sweep.winner``); the three that enqueue device
+work are device spans, so with device timing armed they carry when the
+card ran it.
+
 Results are bit-identical to the staged path by construction: the
 partitioner is the bit-identity-tested device engine, the rotation plan
 and the gathers are the staged path's own, and the score columns are
@@ -90,6 +96,11 @@ def _lex_less_t(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return res
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.nelement() * t.element_size() for t in tensors
+               if t is not None)
+
+
 class FusedSweep:
     """Runs a whole rotation sweep on the pipeline's device.
 
@@ -137,43 +148,57 @@ class FusedSweep:
         dev = pipe.search.device
         kind = self.score_kind
         ncand = len(cands)
-        plan = pipe.sweep_plan(tc, pc, cands, task_weights)
+        with obs.span("sweep.plan", candidates=ncand):
+            plan = pipe.sweep_plan(tc, pc, cands, task_weights)
 
         # --- upload everything before the first kernel is enqueued ------
-        t_in = upload(**plan.task, device=dev)
-        p_in = upload(**plan.proc, device=dev)
-        t_sel = torch.from_numpy(plan.t_sel).to(dev)
-        p_sel = torch.from_numpy(plan.p_sel).to(dev)
-        acoords = torch.from_numpy(np.ascontiguousarray(
-            alloc.coords, dtype=np.int32)).to(dev)
-        edges, w, inv_bw = message_inputs(machine, graph.edges,
-                                          graph.weights, traffic, dev)
+        with obs.span("sweep.upload", device=dev) as sp:
+            t_in = upload(**plan.task, device=dev)
+            p_in = upload(**plan.proc, device=dev)
+            t_sel = torch.from_numpy(plan.t_sel).to(dev)
+            p_sel = torch.from_numpy(plan.p_sel).to(dev)
+            acoords = torch.from_numpy(np.ascontiguousarray(
+                alloc.coords, dtype=np.int32)).to(dev)
+            edges, w, inv_bw = message_inputs(machine, graph.edges,
+                                              graph.weights, traffic, dev)
+            sp.annotate(bytes=_nbytes(
+                t_in.cols, t_in.sdo, t_in.w, t_in.tab, p_in.cols, p_in.sdo,
+                p_in.w, p_in.tab, t_sel, p_sel, acoords, edges, w, inv_bw))
 
         # --- partition both sides + GETMAPPINGARRAYS ---------------------
-        t2p, ptp = assign_parts(run(t_in), run(p_in), t_sel, p_sel)
+        with obs.span("sweep.partition", device=dev,
+                      points=len(tc) + len(pc), candidates=ncand):
+            t2p, ptp = assign_parts(run(t_in), run(p_in), t_sel, p_sel)
 
         # --- score the stack ---------------------------------------------
-        stack = acoords[t2p]                     # (ncand, tnum, ndim) i32
-        ev = self._score(machine, stack, edges, w, inv_bw, traffic)
-        scores = _columns(ev, objective, ne)              # (ncand, nobj)
+        with obs.span("sweep.score", device=dev, kernel=kind,
+                      candidates=ncand, tasks=len(tc), edges=ne,
+                      traffic=bool(traffic)):
+            stack = acoords[t2p]                 # (ncand, tnum, ndim) i32
+            ev = self._score(machine, stack, edges, w, inv_bw, traffic)
+            scores = _columns(ev, objective, ne)          # (ncand, nobj)
 
         # --- copy (i): scores + status + flag; select on the host -------
-        host = torch.cat([scores.reshape(-1),
-                          ev["status"].to(torch.float64).reshape(1),
-                          (ptp.min() >= 0).to(torch.float64).reshape(1)]
-                         ).cpu().numpy()
-        if not host[-1]:
-            raise missing_parts(ptp)
-        _mapscore.raise_for_status(int(host[-2]), machine.dims)
-        scores_h = host[:-2].reshape(ncand, len(objective))
-        best_i = first_best(scores_h)
+        with obs.span("sweep.select"):
+            host = torch.cat([scores.reshape(-1),
+                              ev["status"].to(torch.float64).reshape(1),
+                              (ptp.min() >= 0).to(torch.float64).reshape(1)]
+                             ).cpu().numpy()
+            if not host[-1]:
+                raise missing_parts(ptp)
+            _mapscore.raise_for_status(int(host[-2]), machine.dims)
+            scores_h = host[:-2].reshape(ncand, len(objective))
+            best_i = first_best(scores_h)
 
         obs.annotate(score_backend=kind, candidates=ncand)
         if refine is not None and len(tc) == len(pc):
             # --- the refinement, from the winner's row on the device ----
-            ref = _Refinement(self, machine, acoords, edges, w, inv_bw,
-                              graph, traffic, objective)
-            row, rstats, reads = ref.run(t2p[best_i], **refine)
+            with obs.span("sweep.refine", device=dev) as sp:
+                ref = _Refinement(self, machine, acoords, edges, w, inv_bw,
+                                  graph, traffic, objective)
+                row, rstats, reads = ref.run(t2p[best_i], **refine)
+                sp.annotate(rounds=rstats["refine_rounds_run"],
+                            host_reads=reads)
             best = MappingResult(row, score=rstats["refine_final"],
                                  rotation=rotation_of(cands[best_i]))
             best.stats.update(fused_refine=True, **rstats)
@@ -182,7 +207,8 @@ class FusedSweep:
                          refine_host_reads=reads)
         else:
             # --- copy (ii): the winner's row -----------------------------
-            row = t2p[best_i].to(torch.int32).cpu().numpy()
+            with obs.span("sweep.winner"):
+                row = t2p[best_i].to(torch.int32).cpu().numpy()
             best = MappingResult(row, score=float(scores_h[best_i][0]),
                                  rotation=rotation_of(cands[best_i]))
         best.stats.update(fused=True, fused_score_backend=kind,

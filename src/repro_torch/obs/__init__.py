@@ -5,11 +5,12 @@ One dependency-free observability substrate, three parts:
 - :mod:`repro_torch.obs.trace` — request-scoped SPANS: thread-safe context
   managers over monotonic clocks, nested parent/child structure, one
   trace id per service request, propagated through every degradation
-  rung, pipeline stage and backend call site.
+  rung, pipeline stage and backend call site; device spans carry when
+  the card ran their work once :func:`device_time` arms timing.
 - :mod:`repro_torch.obs.metrics` — the process-wide telemetry REGISTRY:
   bounded named counters/gauges/histograms plus adapters absorbing the
-  stack's scattered counters (compile caches, LRUs, services,
-  breakers, faults) into one :func:`snapshot`.
+  stack's scattered counters (LRUs, services, breakers, faults, kernel
+  launches) into one :func:`snapshot`.
 - :mod:`repro_torch.obs.export` — JSONL span logs (``REPRO_TRACE=path``),
   Chrome trace-event JSON for Perfetto, Prometheus text exposition,
   and a ``torch.profiler`` bridge (``REPRO_TORCH_PROFILE=dir``).
@@ -22,12 +23,11 @@ it is safe at the bottom of every layer.
 from .export import (JsonlSink, chrome_trace, install_env_sink,
                      prometheus_text, read_jsonl, torch_profile,
                      write_chrome_trace)
-from .metrics import (REGISTRY, counter, gauge, instrument_compile_cache,
-                      observe, register_cache, register_object,
-                      register_provider, snapshot, span_rollup)
+from .metrics import (REGISTRY, counter, gauge, observe, register_object,
+                      register_provider, snapshot)
 from .trace import (TRACER, Span, Tracer, add_sink, annotate, attach,
-                    current_span, finished, format_tree, remove_sink,
-                    reset, span, span_tree)
+                    current_span, device_time, finished, format_tree,
+                    remove_sink, reset, span, span_tree)
 
 # arm the process-wide JSONL event log when REPRO_TRACE names a path
 _ENV_SINK = install_env_sink()
@@ -35,9 +35,9 @@ _ENV_SINK = install_env_sink()
 __all__ = [
     "JsonlSink", "REGISTRY", "Span", "TRACER", "Tracer", "add_sink",
     "annotate", "attach", "chrome_trace", "counter", "current_span",
-    "finished", "format_tree", "gauge", "install_env_sink",
-    "instrument_compile_cache", "observe", "prometheus_text",
-    "read_jsonl", "register_cache", "register_object",
-    "register_provider", "remove_sink", "reset", "snapshot", "span",
-    "span_rollup", "span_tree", "torch_profile", "write_chrome_trace",
+    "device_time", "finished", "format_tree", "gauge",
+    "install_env_sink", "observe", "prometheus_text", "read_jsonl",
+    "register_object", "register_provider", "remove_sink", "reset",
+    "snapshot", "span", "span_tree", "torch_profile",
+    "write_chrome_trace",
 ]

@@ -33,6 +33,8 @@ from . import metrics as _metrics
 from . import trace as _trace
 
 TRACE_ENV = "REPRO_TRACE"
+# the Chrome trace's row of the card's intervals (no thread has id 0)
+DEVICE_TID = 0
 TORCH_PROFILE_ENV = "REPRO_TORCH_PROFILE"
 
 
@@ -97,21 +99,35 @@ def chrome_trace(spans=None) -> dict:
     ``spans`` defaults to the tracer's finished ring.  Timestamps are
     the spans' monotonic starts in microseconds (one shared origin per
     process); each trace id becomes a distinct ``pid`` row so requests
-    separate visually, threads map to ``tid``.
+    separate visually, threads map to ``tid``.  A device span's interval
+    on the card (``device_t0_s`` .. ``device_t1_s``, the same clock) is
+    one more event on its trace's ``device`` row (``tid`` 0).
     """
     spans = _trace.finished() if spans is None else list(spans)
     pids: dict = {}
+    device_rows: set = set()
     events = []
     for s in spans:
         pid = pids.setdefault(s.trace_id, len(pids))
+        args = {"trace_id": s.trace_id, "span_id": s.span_id,
+                "parent_id": s.parent_id, **s.attrs}
         events.append({
             "ph": "X", "name": s.name,
             "ts": s.t0 * 1e6, "dur": s.duration_s * 1e6,
-            "pid": pid, "tid": s.thread,
-            "args": {"trace_id": s.trace_id,
-                     "span_id": s.span_id,
-                     "parent_id": s.parent_id, **s.attrs},
+            "pid": pid, "tid": s.thread, "args": args,
         })
+        if "device_t0_s" in s.attrs:
+            if pid not in device_rows:
+                device_rows.add(pid)
+                events.append({"ph": "M", "name": "thread_name",
+                               "pid": pid, "tid": DEVICE_TID,
+                               "args": {"name": "device"}})
+            events.append({
+                "ph": "X", "name": s.name,
+                "ts": s.attrs["device_t0_s"] * 1e6,
+                "dur": s.attrs["device_s"] * 1e6,
+                "pid": pid, "tid": DEVICE_TID, "args": args,
+            })
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",

@@ -6,10 +6,9 @@ wrapper's launch count, ``faults.stats()``.  :func:`snapshot` is the one
 call that answers "what is this process doing".  Three provider groups
 feed it:
 
-- **caches** — compile caches registered by
-  :func:`instrument_compile_cache`, the registry-backed helper that
-  replaced the copy-pasted ``*_cache_stats()`` / ``reset_*_cache()``
-  quadruplet.  New caches auto-register by construction.
+- **caches** — compile caches; the port compiles nothing, so the
+  section is always empty, kept so that a snapshot (and its Prometheus
+  text) has the reference's shape.
 - **objects** — live ``.stats()``-bearing instances
   (:class:`repro_torch.serve.MappingService`, ``LRUCache``) held by WEAK
   reference in bounded most-recent-first groups, so the registry never
@@ -89,9 +88,6 @@ class MetricsRegistry:
         self._gauges: dict[str, float] = {}
         self._hists: dict[str, Histogram] = {}
         self._dropped = 0
-        # name -> (stats_fn, reset_fn): compile caches are module-level
-        # singletons, strong refs are correct and bounded by the code
-        self._caches: "OrderedDict[str, tuple]" = OrderedDict()
         # group -> OrderedDict[id(obj) -> weakref]: most recent last
         self._objects: dict[str, OrderedDict] = {}
         self._providers: dict[str, object] = {}
@@ -127,10 +123,6 @@ class MetricsRegistry:
 
     # -- adapter groups ---------------------------------------------------
 
-    def register_cache(self, name: str, stats_fn, reset_fn) -> None:
-        with self._lock:
-            self._caches[name] = (stats_fn, reset_fn)
-
     def register_object(self, group: str, obj) -> None:
         """Track ``obj`` (has ``.stats()``) weakly under ``group``."""
         with self._lock:
@@ -149,15 +141,6 @@ class MetricsRegistry:
         while len(od) > self.max_objects:
             od.popitem(last=False)
 
-    def cache_names(self) -> list:
-        with self._lock:
-            return list(self._caches)
-
-    def reset_cache(self, name: str) -> None:
-        with self._lock:
-            reset = self._caches[name][1]
-        reset()
-
     # -- snapshot ---------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -166,7 +149,6 @@ class MetricsRegistry:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             hists = {k: h.to_dict() for k, h in self._hists.items()}
-            caches = list(self._caches.items())
             groups = {}
             for group, od in self._objects.items():
                 self._prune_locked(od)
@@ -178,11 +160,6 @@ class MetricsRegistry:
             "histograms": hists,
             "caches": {}, "meta": {"dropped_series": dropped},
         }
-        for name, (stats_fn, _) in caches:
-            try:
-                out["caches"][name] = stats_fn()
-            except Exception as e:  # a cache module mid-teardown
-                out["caches"][name] = {"error": type(e).__name__}
         for group, objs in groups.items():
             section = {}
             for i, obj in enumerate(objs):
@@ -255,36 +232,8 @@ REGISTRY = MetricsRegistry()
 counter = REGISTRY.counter
 gauge = REGISTRY.gauge
 observe = REGISTRY.observe
-register_cache = REGISTRY.register_cache
 register_object = REGISTRY.register_object
 register_provider = REGISTRY.register_provider
-
-
-def instrument_compile_cache(name: str, cached_fn):
-    """The registry-backed replacement for the copy-pasted
-    ``*_cache_stats()`` / ``reset_*_cache()`` quadruplet.
-
-    ``cached_fn`` is a ``functools.lru_cache``-wrapped callable whose
-    hit/miss counters are a truthful compile-count proxy (each entry
-    sees exactly one input shape — see the call sites).  Returns
-    ``(stats_fn, reset_fn)`` with the legacy contract — ``stats_fn()``
-    is ``{"hits", "misses", "entries"}``, ``reset_fn()`` clears entries
-    and zeroes the counters — and registers the pair under ``name`` so
-    the cache appears in :func:`snapshot` with no further wiring.
-    """
-
-    def stats_fn() -> dict:
-        info = cached_fn.cache_info()
-        return {"hits": int(info.hits), "misses": int(info.misses),
-                "entries": int(info.currsize)}
-
-    def reset_fn() -> None:
-        cached_fn.cache_clear()
-
-    stats_fn.__name__ = f"{name}_cache_stats"
-    reset_fn.__name__ = f"reset_{name}_cache"
-    REGISTRY.register_cache(name, stats_fn, reset_fn)
-    return stats_fn, reset_fn
 
 
 _ENSURED = False
@@ -327,10 +276,8 @@ def snapshot() -> dict:
         the primitive series (response statuses, breaker trips,
         latency distributions).
     ``caches``
-        every registered compile cache's ``{hits, misses, entries}`` —
-        values identical to the legacy per-module accessors
-        (``scorer_cache_stats`` et al.), which are now thin aliases of
-        the same closures.
+        compile caches: none in the port (nothing compiles), kept for
+        the reference's shape.
     ``services`` / ``lrus``
         ``.stats()`` of the live (weakly-tracked) service and
         result-cache instances.
@@ -343,16 +290,3 @@ def snapshot() -> dict:
     _ensure_providers()
     return REGISTRY.snapshot()
 
-
-def span_rollup(spans) -> dict:
-    """Aggregate spans by name: ``{name: {count, total_s, max_s}}`` —
-    the per-phase rollup ``benchmarks/run.py --json`` records."""
-    out: dict = {}
-    for s in spans:
-        agg = out.setdefault(s.name, {"count": 0, "total_s": 0.0,
-                                      "max_s": 0.0})
-        d = s.duration_s
-        agg["count"] += 1
-        agg["total_s"] += d
-        agg["max_s"] = max(agg["max_s"], d)
-    return out

@@ -23,9 +23,21 @@ module replaces them with SPANS:
 - ``contextvars`` do not cross thread boundaries; code that hops
   threads (the serve layer's deadline worker) re-parents explicitly
   with :func:`attach`.
+- A span opened with ``device=`` is a DEVICE span: while
+  :func:`device_time` has armed device timing on a process with CUDA,
+  it records a timing event on the current stream as it opens and as
+  it closes.  When its trace's root closes, the events are resolved
+  against an anchor taken as the root opened, or at arming where the
+  root opened before (``device_t0_s`` / ``device_t1_s``:
+  when the card reached each event, on the spans' own ``perf_counter``
+  clock; ``device_s``, their difference) and the span goes to the
+  ring and the sinks then, before its root.  Disarmed, a device span is
+  a host span.  Events are not kernels: nothing here shows on the
+  profiler's device timeline.
 
-The module is stdlib-only and allocation-light: an unsampled process
-pays one contextvar read per span plus a deque append on exit.
+The module is stdlib-only at import (torch is imported when device
+timing is armed) and allocation-light: an unsampled process pays one
+contextvar read per span plus a deque append on exit.
 """
 
 from __future__ import annotations
@@ -59,7 +71,7 @@ class Span:
     """
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "attrs",
-                 "t0", "t1", "wall", "thread")
+                 "t0", "t1", "wall", "thread", "dev")
 
     def __init__(self, name: str, trace_id: str,
                  parent_id: int | None = None, **attrs):
@@ -72,6 +84,9 @@ class Span:
         self.t1: float | None = None
         self.wall = time.time()
         self.thread = threading.get_ident()
+        # [clock, open event, close event] of a device span until its
+        # trace's root resolves them; None for a host span
+        self.dev: list | None = None
 
     @property
     def duration_s(self) -> float:
@@ -98,6 +113,52 @@ class Span:
                 f"dur={self.duration_s * 1e3:.3f}ms, {self.attrs})")
 
 
+class DeviceClock:
+    """The anchor between the card's timing events and ``perf_counter``:
+    a timing event recorded with the card idle, and the host's clock read
+    as soon as a poll sees it completed; of a few tries, the one whose
+    record-to-completion took least (a try the host thread was
+    descheduled in reads late)."""
+
+    TRIES = 3
+
+    def __init__(self, torch):
+        self._torch = torch
+        self._event = torch.cuda.Event
+        torch.cuda.synchronize()
+        best = None
+        for _ in range(self.TRIES):
+            ev = self._event(enable_timing=True)
+            before = time.perf_counter()
+            ev.record()
+            while not ev.query():
+                pass
+            after = time.perf_counter()
+            if best is None or after - before < best[0]:
+                best = (after - before, ev, after)
+        _, self.anchor, self.host_s = best
+
+    def renewed(self) -> "DeviceClock":
+        """A fresh anchor: the card's timer drifts against
+        ``perf_counter``, so one anchor serves one trace."""
+        return DeviceClock(self._torch)
+
+    def mark(self):
+        """A timing event recorded on the current stream."""
+        ev = self._event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def at(self, ev) -> float:
+        """When the card reached ``ev``, on the ``perf_counter`` clock
+        (``ev`` must have completed)."""
+        return self.host_s + self.anchor.elapsed_time(ev) * 1e-3
+
+
+def _on_cuda(device) -> bool:
+    return device is True or str(device).startswith("cuda")
+
+
 class Tracer:
     """Span factory + finished-span ring + sink fan-out (thread-safe).
 
@@ -109,23 +170,44 @@ class Tracer:
         self._lock = threading.Lock()
         self._finished: deque = deque(maxlen=max_finished)
         self._sinks: list = []
+        # armed device timing (None: off), and the device spans held
+        # back by trace id, one entry a root opened while armed
+        self._clock: DeviceClock | None = None
+        self._held: dict = {}
 
     # -- span lifecycle ---------------------------------------------------
 
     @contextmanager
-    def span(self, name: str, **attrs):
+    def span(self, name: str, device=False, **attrs):
         """Open a child of the context's current span (or a new root).
 
         The span closes on block exit; an escaping exception is recorded
         as ``attrs["error"]`` (exception type name) before propagating,
         so failed backend calls and ladder rungs are visible in the
         trace without any per-site boilerplate.
+
+        ``device``: ``False`` for a host span; ``True`` (the current
+        CUDA device) or the device the span's work runs on for a device
+        span (see the module docstring), which on a device other than
+        CUDA is a host span.  A device given by value is also kept as the
+        ``device`` attribute.
         """
+        if device is not False and device is not True:
+            attrs["device"] = str(device)
         parent: Span | None = _CURRENT.get()
         if parent is None:
             sp = Span(name, uuid.uuid4().hex[:16], None, **attrs)
         else:
             sp = Span(name, parent.trace_id, parent.span_id, **attrs)
+        clock = self._clock
+        if clock is not None:
+            if parent is None:
+                # each trace resolves against an anchor of its own
+                clock = self._clock = clock.renewed()
+                with self._lock:
+                    self._held[sp.trace_id] = []
+            if device is not False and _on_cuda(device):
+                sp.dev = [clock, clock.mark()]
         token = _CURRENT.set(sp)
         try:
             yield sp
@@ -133,6 +215,8 @@ class Tracer:
             sp.attrs.setdefault("error", type(e).__name__)
             raise
         finally:
+            if sp.dev is not None:
+                sp.dev.append(sp.dev[0].mark())
             sp.t1 = time.perf_counter()
             _CURRENT.reset(token)
             self._finish(sp)
@@ -160,14 +244,47 @@ class Tracer:
         return _CURRENT.get()
 
     def _finish(self, sp: Span) -> None:
+        ready = [sp]
+        if sp.dev is not None or self._held:
+            with self._lock:
+                if sp.parent_id is None:
+                    ready = self._held.pop(sp.trace_id, []) + ready
+                elif sp.dev is not None and sp.trace_id in self._held:
+                    self._held[sp.trace_id].append(sp)
+                    return
+            # the root has closed (or closed before this span did); in
+            # a served request the answer is on the host, so every event
+            # has completed and resolving waits on nothing
+            for s in ready:
+                if s.dev is not None:
+                    clock, e0, e1 = s.dev
+                    s.dev = None
+                    e1.synchronize()
+                    t0, t1 = clock.at(e0), clock.at(e1)
+                    s.attrs.update(device_t0_s=t0, device_t1_s=t1,
+                                   device_s=t1 - t0)
         with self._lock:
-            self._finished.append(sp)
+            self._finished.extend(ready)
             sinks = list(self._sinks)
-        for sink in sinks:
-            try:
-                sink(sp)
-            except Exception:
-                self.remove_sink(sink)
+        for s in ready:
+            for sink in sinks:
+                try:
+                    sink(s)
+                except Exception:
+                    self.remove_sink(sink)
+
+    # -- device timing ----------------------------------------------------
+
+    def device_time(self, enabled: bool) -> bool:
+        """Arm (with a fresh anchor) or disarm device timing; whether it
+        is armed now.  Arming does nothing in a process without CUDA."""
+        clock = None
+        if enabled:
+            import torch
+            if torch.cuda.is_available():
+                clock = DeviceClock(torch)
+        self._clock = clock
+        return clock is not None
 
     # -- finished spans ---------------------------------------------------
 
@@ -240,9 +357,15 @@ def format_tree(spans, indent: str = "  ") -> str:
 TRACER = Tracer()
 
 
-def span(name: str, **attrs):
+def span(name: str, device=False, **attrs):
     """Open a span on the process tracer (see :meth:`Tracer.span`)."""
-    return TRACER.span(name, **attrs)
+    return TRACER.span(name, device, **attrs)
+
+
+def device_time(enabled: bool) -> bool:
+    """Arm or disarm device timing for the process (see
+    :meth:`Tracer.device_time`)."""
+    return TRACER.device_time(enabled)
 
 
 def attach(parent: Span | None):

@@ -106,6 +106,14 @@ class MappingRequest:
                 self.graph, self.alloc, self.config, extra or None)
         return self._signature
 
+    def hashed_bytes(self) -> int:
+        """The array bytes :meth:`signature` hashes (0 once memoised)."""
+        if self._signature is not None:
+            return 0
+        arrays = [self.graph.coords, self.graph.edges, self.graph.weights,
+                  self.alloc.coords, self.task_coords, self.task_weights]
+        return sum(np.asarray(a).nbytes for a in arrays if a is not None)
+
 
 def make_request(graph, alloc, objective="wh", *, config=None,
                  task_coords=None, task_weights=None,
@@ -406,7 +414,8 @@ class MappingService:
     def _serve(self, request: MappingRequest) -> MappingResponse:
         t0 = time.perf_counter()
         faults.fire("serve.cache", on_evict=self.results.storm)
-        sig = request.signature()
+        with obs.span("serve.signature", bytes=request.hashed_bytes()):
+            sig = request.signature()
         waited = False
         while True:
             result = self.results.get(sig, count=not waited)
