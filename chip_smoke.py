@@ -27,13 +27,22 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    small cloud of mixed -0.0 / 0.0 coordinates under FZ and Gray; a rerun
    must be bit-identical, every sweep after its upload runs under
    ``torch.cuda.set_sync_debug_mode("error")``, and the device and host
-   times are kept; then segscan against its plain version, exactly, at
+   times are kept (an unweighted sweep launches mjfinish once where it
+   hands off); then segscan against its plain version, exactly, at
    the weighted sweep's shape (first-level and random segments), timed
-   beside ``torch.cumsum`` with its bound.
+   beside ``torch.cumsum`` with its bound; then mjfinish from the loop's
+   state at the handoff level against its plain version and the host
+   engine, bit for bit, at the main path's shapes (131,072 x 6 grid and
+   core clouds, 86,400 x 6, 4,096 x 6 under FZ, Gray, FZlow and strict
+   alternation, 131,072 into 4,096 parts x 1): one launch a call, a rerun
+   bit for bit, timed beside its byte bound and the whole sweep; and,
+   each in a child process, a plan that skips a segment or misplaces
+   its heads must make the next synchronising call raise.
    ``serve``   — a ``MappingService`` with the default config (device
    partitioner, one-pass fused sweep, ``device="cuda"``) answers the four
    scenarios and a weighted one cold: each takes the fused path with one
-   kernel launch (segscan once a level for the weighted one) and serves
+   kernel launch (segscan once a level for the weighted one, mjfinish
+   once a side it finishes) and serves
    the host-engine candidate that the numpy evaluator picks; then warm,
    a batch with a duplicate, and each scenario with ``fused="off"`` (the
    staged device path, same answers) for its stage timings.
@@ -49,8 +58,9 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    not degraded, of the hierarchy and depth asked, ``fused_refine``
    exactly where the top level swaps, with monotone histories, K1
    launched once a pipeline evaluator call plus the fused pass's own,
-   segscan (the top sweep is weighted by cluster sizes) at least once;
-   and equal, bit for bit, to the all-host path (numpy partitioner and
+   segscan (the top sweep is weighted by cluster sizes) at least once,
+   mjfinish once a sweep that hands off (two a node request: the
+   coarsening and the router side); and equal, bit for bit, to the all-host path (numpy partitioner and
    scorer, ``fused="off"``) for WeightedHops and to the staged path with
    the same K1 scorer for the latency objective.  Before them: the fused
    refinement against the host pass on the card for tied and zero
@@ -570,7 +580,8 @@ def partition_case(name, kw, host=None) -> dict:
     ``host``: the host engine's (part numbers, seconds) if already run."""
     import torch
     from repro_torch.core.orderings import order_points_batched
-    from repro_torch.core.partition_torch import run, upload
+    from repro_torch.core.partition_torch import finish_level, run, upload
+    from repro_torch.kernels.mjfinish import ops as mj_ops
     from repro_torch.kernels.segscan import ops as seg_ops
     if host is None:
         t0 = time.perf_counter()
@@ -582,12 +593,16 @@ def partition_case(name, kw, host=None) -> dict:
     inp = upload(**kw, device="cuda")
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    n0 = seg_ops.launch_count
+    n0, m0 = seg_ops.launch_count, mj_ops.launch_count
     t0 = time.perf_counter()
     got = no_sync(run, inp)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = seg_ops.launch_count - n0
+    finish_from = finish_level(inp, inp.levels)
+    check(mj_ops.launch_count - m0 == int(finish_from >= 0),
+          f"{name}: {mj_ops.launch_count - m0} mjfinish launches, finish "
+          f"level {finish_from}")
     again = no_sync(run, inp)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -600,7 +615,8 @@ def partition_case(name, kw, host=None) -> dict:
            "uneven_prime": bool(kw.get("uneven_prime")),
            "levels": inp.levels if kw["sfc"] != "H" else 0,
            "host_s": host_s, "upload_s": upload_s, "first_s": first_s,
-           "copy_s": copy_s, "segscan_launches": launches}
+           "copy_s": copy_s, "segscan_launches": launches,
+           "finish_from": finish_from}
     check(torch.equal(got, again), f"{name}: a rerun differs")
     ndiff = int((got_h != want).sum())
     check(got_h.shape == want.shape and ndiff == 0,
@@ -704,11 +720,167 @@ def segscan_cases(nb: int, n: int) -> list:
     return out
 
 
+def mjfinish_clouds() -> list:
+    """The main path's mjfinish shapes, from seed 27: (name, coords,
+    nparts, dim orders).  Both sides of a cold minighost sweep (a
+    (64, 64, 32) task grid; 4,096 routers of a (25, 16, 24) torus, 32
+    cores each), a homme-sized sphere (86,400 points), the node cell's
+    4,096 routers, and its coarsening of the grid into 4,096 clusters;
+    six dimension orders a side, one for the coarsening."""
+    import itertools
+    import numpy as np
+    rng = np.random.default_rng(27)
+    perms = np.array(list(itertools.permutations(range(3))))
+    grid = np.stack([c.ravel() for c in np.indices((64, 64, 32))],
+                    axis=1).astype(np.float64)
+    torus = np.stack([c.ravel() for c in np.indices((25, 16, 24))], axis=1)
+    routers = torus[np.sort(rng.choice(len(torus), 4096, replace=False))
+                    ].astype(np.float64)
+    sphere = rng.normal(size=(86400, 3))
+    sphere /= np.linalg.norm(sphere, axis=1, keepdims=True)
+    return [("minighost-tasks", grid, 131072, perms),
+            ("minighost-cores", np.repeat(routers, 32, axis=0), 131072,
+             perms),
+            ("homme-sphere", sphere, 86400, perms),
+            ("node-routers", routers, 4096, perms),
+            ("node-coarsening", grid, 4096, perms[:1])]
+
+
+def mjfinish_bound(N: int, d: int, segments: int, nb: int) -> dict:
+    """Least time of one launch: the state at the handoff read once (pts
+    and d coordinate rows by position; mu, seg_start, seg_size and
+    seg_np at each segment's first position; the heads and the priority
+    rows) and the part numbers written once, over the memory rate."""
+    nbytes = 8 * N * (d + 2) + 32 * segments + 8 * (segments // nb + nb * d)
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_bytes": nbytes}
+
+
+def mjfinish_case(name, coords, nparts, dos, sfc="FZ",
+                  longest_dim=True) -> dict:
+    """mjfinish from the loop's state at the handoff level against its
+    plain version on the card and against the host engine, bit for bit;
+    a rerun bit for bit, one launch a call, no host sync; timed with CUDA
+    events beside its byte bound."""
+    import torch
+    from repro_torch.core import partition_torch as PT
+    from repro_torch.core.orderings import order_points_batched
+    from repro_torch.kernels.mjfinish import ops, ref
+    kw = dict(coords=coords, nparts=nparts, sfc=sfc, dim_orders=dos,
+              longest_dim=longest_dim)
+    inp = PT.upload(**kw, device="cuda")
+    nb, n = inp.shape
+    l0, heads, cap = PT._finish_plan(inp, inp.levels)
+    check(l0 >= 0, f"mjfinish/{name}: no handoff level")
+    st = PT.mj_levels(PT.initial_state(inp), inp.sdo, inp.tab, sfc=sfc,
+                      longest_dim=inp.longest_dim, lo=0, hi=l0)
+    args = (*st, inp.sdo, inp.tab, heads)
+    fkw = dict(level=l0, levels=inp.levels, cap=cap, sfc=sfc,
+               longest_dim=inp.longest_dim)
+    torch.cuda.synchronize()
+    n0 = ops.launch_count
+    got = no_sync(ops.mjfinish, *args, **fkw)
+    again = no_sync(ops.mjfinish, *args, **fkw)
+    torch.cuda.synchronize()
+    check(ops.launch_count == n0 + 2, f"mjfinish/{name}: not one launch a "
+                                      f"call")
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = ref.mjfinish_ref(*st, inp.sdo, inp.tab, level=l0,
+                            levels=inp.levels, sfc=sfc,
+                            longest_dim=inp.longest_dim)
+    t1.record()
+    t1.synchronize()
+    t = time.perf_counter()
+    host = order_points_batched(**kw, backend="vectorized")
+    host_s = time.perf_counter() - t
+    check(torch.equal(got, again), f"mjfinish/{name}: a rerun differs")
+    ndiff = int((got != want).sum())
+    check(ndiff == 0, f"mjfinish/{name}: {ndiff} part numbers differ from "
+                      f"the plain version")
+    ndiff = int((got.cpu().numpy() != host).sum())
+    check(ndiff == 0, f"mjfinish/{name}: {ndiff} part numbers differ from "
+                      f"the host engine")
+    rec = {"case": name, "sfc": sfc, "longest_dim": inp.longest_dim,
+           "n": n, "candidates": nb, "nparts": nparts, "levels": inp.levels,
+           "finish_from": l0, "segments": int(heads.numel()) * nb,
+           "cap": cap, "plain_ms": t0.elapsed_time(t1), "host_s": host_s,
+           "ms": cuda_ms(lambda: ops.mjfinish(*args, **fkw), 10),
+           "sweep_ms": cuda_ms(lambda: PT.run(inp), 5, 1)}
+    rec.update(mjfinish_bound(nb * n, int(inp.cols.shape[0]),
+                              rec["segments"], nb))
+    return rec
+
+
+# a child process's mjfinish call from a plan that disagrees with the
+# state: a 16,384-point sweep hands off at level 2 (4 segments of 4,096)
+MJFINISH_MISMATCH = """
+import os
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, "src")
+from repro_torch.core import partition_torch as PT
+from repro_torch.kernels.mjfinish import mjfinish
+inp = PT.upload(np.random.default_rng(0).normal(size=(16384, 3)), 16384,
+                "FZ", dim_orders=[[0, 1, 2]], device="cuda")
+l0, heads, cap = PT._finish_plan(inp, inp.levels)
+assert l0 == 2 and heads.numel() == 4, (l0, heads)
+st = PT.mj_levels(PT.initial_state(inp), inp.sdo, inp.tab, sfc="FZ",
+                  longest_dim=True, lo=0, hi=l0)
+heads = {"skip": heads[:-1], "shift": heads + (heads > 0)}[sys.argv[1]]
+try:
+    out = mjfinish(*st, inp.sdo, inp.tab, heads, level=l0,
+                   levels=inp.levels, cap=cap, sfc="FZ", longest_dim=True)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("raised:", str(err).splitlines()[0])
+else:
+    print("answered")
+sys.stdout.flush()
+os._exit(0)   # a lost context may fail torch's own teardown
+"""
+
+
+def mjfinish_mismatch_cases() -> dict:
+    """A plan that disagrees with the state fails loudly: heads that skip
+    the last segment, or put every head but the first one position late,
+    make the next synchronising call raise.  Each in a child process,
+    since the trap loses the CUDA context."""
+    out = {}
+    for case in ("skip", "shift"):
+        r = subprocess.run([sys.executable, "-c", MJFINISH_MISMATCH, case],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        said = (r.stdout.strip().splitlines() or [""])[-1]
+        check(r.returncode == 0 and said.startswith("raised:"),
+              f"mjfinish/{case}: exit {r.returncode}, {said!r}, "
+              f"{r.stderr[-2000:]}")
+        out[case] = said
+    return out
+
+
+def mjfinish_cases() -> list:
+    """:func:`mjfinish_case` at the main path's shapes under FZ, and the
+    routers under Gray, FZlow and strict alternation."""
+    out = []
+    for name, coords, nparts, dos in mjfinish_clouds():
+        out.append(mjfinish_case(name, coords, nparts, dos))
+        if name == "node-routers":
+            for sfc, longest in (("Gray", True), ("FZlow", True),
+                                 ("FZ", False)):
+                out.append(mjfinish_case(name, coords, nparts, dos, sfc,
+                                         longest))
+    return out
+
+
 def partition_phase(problems, weighted, scale) -> dict:
     """Every partitioner call of the four served scenarios, both sides,
     plus a weighted sweep (segscan), a Hilbert one, an uneven-prime one
     and the signed-zero cloud under FZ and Gray, on the card against the
-    host engine; then segscan against its plain version."""
+    host engine; then segscan against its plain version, and mjfinish
+    against its plain version and the host engine."""
     import numpy as np
     from repro_torch.kernels.segscan import ops as seg_ops
     cases = []
@@ -742,7 +914,8 @@ def partition_phase(problems, weighted, scale) -> dict:
                      weights=weights, longest_dim=True,
                      uneven_prime=False)))
     seg = segscan_cases(len(wkw["dim_orders"]), len(wkw["coords"]))
-    return {"cases": cases, "segscan": seg}
+    return {"cases": cases, "segscan": seg, "mjfinish": mjfinish_cases(),
+            "mjfinish_mismatch": mjfinish_mismatch_cases()}
 
 
 # ---------------------------------------------------------------------------
@@ -2635,14 +2808,28 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
     import dataclasses
     import numpy as np
     import torch
+    from repro_torch.core import partition_torch as PT
     from repro_torch.core.metrics import evaluate_candidates_numpy
     from repro_torch.core.signature import array_digest, mapping_signature
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import ops
+    from repro_torch.kernels.mjfinish import ops as mj_ops
     from repro_torch.kernels.segscan import ops as seg_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.serve import MappingService, get_scenario
     from repro_torch.serve.engine import MappingRequest
+
+    def handoffs(ref) -> int:
+        """The sides of a sweep that mjfinish finishes: the unweighted
+        ones with a handoff level."""
+        out = 0
+        for kw in ref["sides"].values():
+            n, d = np.shape(kw["coords"])
+            up = bool(kw.get("uneven_prime"))
+            levels = PT.split_depth(kw["nparts"], up)
+            out += kw.get("weights") is None and PT._handoff_plan(
+                n, kw["nparts"], up, d, levels, "cpu")[0] >= 0
+        return out
 
     svc = MappingService()
     reqs = [get_scenario(n, scale=scale, rotations=rotations).request()
@@ -2656,10 +2843,11 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
         [OBJECTIVES["wh"]]
     # the main path's only
     ops.launch_count = fa_ops.launch_count = ssd_ops.launch_count = 0
-    seg_ops.launch_count = 0
+    seg_ops.launch_count = mj_ops.launch_count = 0
     served = []
-    for name, req in zip(names, reqs + [wreq]):
+    for name, req, ref in zip(names, reqs + [wreq], refs):
         k1, seg = ops.launch_count, seg_ops.launch_count
+        mj = mj_ops.launch_count
         resp = svc.map(req)
         torch.cuda.synchronize()
         check(resp.status == "cold", f"{name}: first answer {resp.status}")
@@ -2672,6 +2860,9 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
               f"{name}: scored by {res.stats['fused_score_backend']}")
         check(ops.launch_count == k1 + 1,
               f"{name}: {ops.launch_count - k1} K1 launches, expected 1")
+        check(mj_ops.launch_count - mj == handoffs(ref),
+              f"{name}: {mj_ops.launch_count - mj} mjfinish launches, "
+              f"expected {handoffs(ref)} (one a side it finishes)")
         served.append({"scenario": name, "tasks": int(req.graph.n),
                        "edges": int(len(req.graph.edges)),
                        "machine_dims": list(req.alloc.machine.dims),
@@ -2680,9 +2871,11 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
                        "rotation": res.rotation,
                        "winner_index": res.stats["winner_index"],
                        "segscan_launches": seg_ops.launch_count - seg,
+                       "mjfinish_launches": mj_ops.launch_count - mj,
                        **res.stats["timings"]})
     launches = ops.launch_count
     seg_launches = seg_ops.launch_count
+    mj_launches = mj_ops.launch_count
     check(fa_ops.launch_count == ssd_ops.launch_count == 0,
           "the mapping path launched a model kernel")
     check(served[-1]["segscan_launches"] == weighted["levels"] > 0
@@ -2755,6 +2948,7 @@ def serve_phase(problems, weighted, scale, rotations) -> dict:
     check_service(svc, "serve")
     return {"requests": served, "kernel_launches": launches,
             "segscan_launches": seg_launches,
+            "mjfinish_launches": mj_launches,
             "service": {k: stats[k] for k in ("cold", "warm", "coalesced")},
             "_answers": answers}
 
@@ -2958,6 +3152,14 @@ def hier_spans(trace_id) -> dict:
             "evaluator_k1": sum(1 for s in spans if s.name == "score.hopper")}
 
 
+def finish_levels(trace_id) -> list:
+    """The handoff level of every device partitioner sweep of one
+    request (``finish_from`` of its spans; -1: no handoff)."""
+    from repro_torch import obs
+    return [level for s in obs.finished(trace_id)
+            for level in s.attrs.get("finish_from", ())]
+
+
 def hier_answer(name, req, res) -> dict:
     """The served hierarchical answer's checks: a valid assignment, the
     hierarchy and depth asked, ``fused_refine`` exactly where the top
@@ -3075,6 +3277,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     from repro_torch.core.signature import mapping_signature
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import ops
+    from repro_torch.kernels.mjfinish import ops as mj_ops
     from repro_torch.kernels.segscan import ops as seg_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.mapping import CandidateSearch, MappingPipeline
@@ -3088,11 +3291,12 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     reqs = [get_scenario(n, scale=scale, rotations=rotations).request()
             for n in HIER_SCENARIOS]
     # the main path's only
-    ops.launch_count = seg_ops.launch_count = 0
+    ops.launch_count = seg_ops.launch_count = mj_ops.launch_count = 0
     fa_ops.launch_count = ssd_ops.launch_count = 0
     served = []
     for name, req in zip(HIER_SCENARIOS, reqs):
         k1, seg = ops.launch_count, seg_ops.launch_count
+        mj = mj_ops.launch_count
         resp = svc.map(req)
         torch.cuda.synchronize()
         check(resp.status == "cold", f"{name}: first answer {resp.status}")
@@ -3110,6 +3314,8 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
                "sweep_points": res.stats["sweep_points"],
                "k1_launches": ops.launch_count - k1,
                "segscan_launches": seg_ops.launch_count - seg,
+               "mjfinish_launches": mj_ops.launch_count - mj,
+               "finish_from": finish_levels(res.stats["trace_id"]),
                **hier_answer(name, req, res), **res.stats["timings"],
                **hier_spans(res.stats["trace_id"])}
         rec["refine_reads"] = (rec["fused_reads"] if rec["fused_refine"]
@@ -3133,9 +3339,18 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
               f"{want_k1}")
         # the top sweep is weighted by the cluster sizes: segscan runs
         check(rec["segscan_launches"] > 0, f"{name}: segscan never ran")
+        # mjfinish: one launch a sweep with a handoff level (each sweep
+        # annotates its span), none for the weighted task side; a node
+        # request's coarsening and router side both hand off
+        handed = sum(level >= 0 for level in rec["finish_from"])
+        check(rec["mjfinish_launches"] == handed
+              and (handed == 2 or "-node-" not in name),
+              f"{name}: {rec['mjfinish_launches']} mjfinish launches, "
+              f"finish_from {rec['finish_from']}")
         served.append(rec)
     launches = ops.launch_count
     seg_launches = seg_ops.launch_count
+    mj_launches = mj_ops.launch_count
     check(fa_ops.launch_count == ssd_ops.launch_count == 0,
           "the hierarchical path launched a model kernel")
     split = coarsen_split(reqs[0])
@@ -3177,7 +3392,8 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
                 rec["staged"] = dict(want.stats["timings"])
     check_service(svc, "hier")
     return {"requests": served, "kernel_launches": launches,
-            "segscan_launches": seg_launches, "refine_traps": traps,
+            "segscan_launches": seg_launches,
+            "mjfinish_launches": mj_launches, "refine_traps": traps,
             "k1_split": k1_split, "k1_proposals": k1_proposals,
             "node_split": split}
 
@@ -3653,6 +3869,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mapscore import kernel as ms_kernel
+    from repro_torch.kernels.mjfinish import kernel as mj_kernel
     from repro_torch.kernels.segscan import kernel as seg_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
 
@@ -3662,6 +3879,7 @@ def main(argv=None) -> int:
     fa_kernel._launch_fn()
     ssd_kernel._launch_fn()
     seg_kernel._launch_fn()
+    mj_kernel._launch_fn()
     info = _build.build_info()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -3736,6 +3954,8 @@ def main(argv=None) -> int:
     lead = full[0]  # minighost on xk7_sparse: the largest accumulators
     seg = mapping["partition"]["segscan"]
     seg_lead = seg[0]  # the first level's layout: the longest walks
+    mjf = mapping["partition"]["mjfinish"]
+    mj_lead = mjf[0]   # minighost's task side: the cold cells' shape
     kernels = [{
         "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
@@ -3808,6 +4028,24 @@ def main(argv=None) -> int:
         "chain_adds": seg_lead["chain_adds"],
         "shape": {"case": seg_lead["case"], "n": seg_lead["n"],
                   "segments": seg_lead["segments"]},
+        "tolerance": "exact",
+    }, {
+        "name": "mjfinish", "route": "cuda", "design": mj_kernel.DESIGN,
+        "source": "src/repro_torch/kernels/mjfinish/csrc/mjfinish.cu",
+        "replaces": "src/repro/core/partition_jax.py:_sweep",
+        "note": "no Pallas counterpart: the reference's level while_loop "
+                "from the handoff level on, one launch a side",
+        "launches": (mapping["serve"]["mjfinish_launches"]
+                     + mapping["hier"]["mjfinish_launches"]),
+        "launches_by_path": {
+            "serve": mapping["serve"]["mjfinish_launches"],
+            "hier": mapping["hier"]["mjfinish_launches"]},
+        "max_abs_err": 0,
+        "ms": mj_lead["ms"], "plain_ms": mj_lead["plain_ms"],
+        "bound_ms": mj_lead["bound_ms"], "bound_by": mj_lead["bound_by"],
+        "library_ms": None,
+        "shape": {k: mj_lead[k] for k in ("case", "n", "candidates",
+                                          "finish_from", "segments")},
         "tolerance": "exact",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,13 @@ explicit ``device``:
 - cuts are rank comparisons (unit weights) or comparisons against a
   weighted prefix sum taken left to right within each segment by the
   ``segscan`` kernel (:mod:`repro_torch.kernels.segscan`);
-- the SFC coordinate flips are masked negations.
+- the SFC coordinate flips are masked negations;
+- from the first level whose segments all fit one block, an unweighted
+  sweep on a CUDA device hands its state to the ``mjfinish`` kernel
+  (:mod:`repro_torch.kernels.mjfinish`), which runs every remaining
+  level of a segment in one block's shared memory: one launch a side.
+  The handoff level is host arithmetic (:func:`finish_level`: an
+  unweighted sweep's segment sizes do not depend on the points).
 
 The representation is *positional*: every one of the ``nb * n`` slots
 carries its segment's ``(start, size, nparts)``, constant within a
@@ -46,16 +52,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
+from repro_torch.kernels.mjfinish import max_tile, mjfinish
 from repro_torch.kernels.segscan import segscan
 
 from .orderings import SFC_KINDS, _split_counts, hilbert_bits
 
-__all__ = ["partition", "order_points_batched_torch", "upload", "run"]
+__all__ = ["partition", "order_points_batched_torch", "upload", "run",
+           "finish_level"]
 
 _I64 = torch.int64
 _F64 = torch.float64
@@ -133,6 +143,7 @@ class SweepInputs:
     sfc: str
     longest_dim: bool
     levels: int
+    uneven_prime: bool = False
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -171,60 +182,101 @@ def upload(coords, nparts: int, sfc: str, *, dim_orders, weights=None,
         tab=torch.from_numpy(tab.astype(np.int64)).to(dev),
         nparts=nparts, sfc=sfc,
         longest_dim=bool(longest_dim) or sfc == "H",
-        levels=split_depth(max(nparts, 0), bool(uneven_prime)))
+        levels=split_depth(max(nparts, 0), bool(uneven_prime)),
+        uneven_prime=bool(uneven_prime))
 
 
 def run(inp: SweepInputs, levels: int | None = None) -> torch.Tensor:
     """The whole batched partition on the inputs' device: (nb, n) int64
     part numbers in original point order.  ``levels`` overrides the
     level count of the Multi-Jagged sweep (a larger count must change
-    nothing; the tests check that).  Every sweep passes the
-    ``partition.torch`` fault site, staged or inside the fused sweep."""
+    nothing; the tests check that).  An unweighted Multi-Jagged sweep on
+    a CUDA device runs the torch loop down to :func:`finish_level` and
+    ``mjfinish`` from there; the open span's ``finish_from`` gets that
+    level (-1: no handoff).  Every sweep passes the ``partition.torch``
+    fault site, staged or inside the fused sweep."""
     from repro_torch import faults
     faults.fire("partition.torch")
     nb, n = inp.shape
+    levels = inp.levels if levels is None else int(levels)
+    plan = _finish_plan(inp, levels)
+    _note_finish(plan[0])
     if inp.nparts <= 1 or n == 0 or nb == 0:
         return torch.zeros((nb, n), dtype=_I64, device=inp.cols.device)
     if inp.sfc == "H":
         return _hilbert_sweep(inp)
-    return _sweep(inp, inp.levels if levels is None else int(levels))
+    return _sweep(inp, levels, plan)
 
 
 # ---------------------------------------------------------------------------
 # the Multi-Jagged sweep
 # ---------------------------------------------------------------------------
 
-def _sweep(inp: SweepInputs, levels: int) -> torch.Tensor:
+class SweepState(NamedTuple):
+    """The positional state of a Multi-Jagged sweep between two levels.
+
+    pts  : (N,) int64 — the slot id of the point at each position.
+    cols : (d, N) float64 — coordinates by position, flips applied.
+    mu, seg_start, seg_size, seg_np : (N,) int64 — each position's part
+           offset, and its segment's first position, length and parts
+           (constant within a segment).
+    """
+
+    pts: torch.Tensor
+    cols: torch.Tensor
+    mu: torch.Tensor
+    seg_start: torch.Tensor
+    seg_size: torch.Tensor
+    seg_np: torch.Tensor
+
+
+def initial_state(inp: SweepInputs) -> SweepState:
+    """Level 0's state: one segment a candidate, every point in order."""
     nb, n = inp.shape
-    d = inp.cols.shape[0]
     dev = inp.cols.device
     N = nb * n
     pos = torch.arange(N, dtype=_I64, device=dev)
-    seg_start = (pos // n) * n
-    seg_size = torch.full((N,), n, dtype=_I64, device=dev)
-    seg_np = torch.full((N,), inp.nparts, dtype=_I64, device=dev)
-    mu = torch.zeros(N, dtype=_I64, device=dev)
-    pts = pos.clone()                     # slot id of the point at each pos
-    cols = inp.cols.repeat(1, nb)         # (d, N), diverges via flips
-    wN = inp.w.repeat(nb) if inp.w is not None else None
-    sdoN = inp.sdo[:, None, :].expand(nb, n, d).reshape(N, d)  # invariant
+    return SweepState(
+        pts=pos,
+        cols=inp.cols.repeat(1, nb),       # (d, N), diverges via flips
+        mu=torch.zeros(N, dtype=_I64, device=dev),
+        seg_start=(pos // n) * n,
+        seg_size=torch.full((N,), n, dtype=_I64, device=dev),
+        seg_np=torch.full((N,), inp.nparts, dtype=_I64, device=dev))
+
+
+def mj_levels(st: SweepState, sdo: torch.Tensor, tab: torch.Tensor, *,
+              sfc: str, longest_dim: bool, lo: int, hi: int,
+              w: torch.Tensor | None = None) -> SweepState:
+    """Levels ``lo .. hi - 1`` of the sweep as whole-array torch
+    operations.  ``sdo`` (nb, d), ``tab`` and ``w`` (the (N,) weights
+    repeated per candidate, or None) are :class:`SweepInputs`' fields;
+    ``lo`` is the absolute level number that strict alternation reads."""
+    if lo >= hi:
+        return st
+    pts, cols, mu, seg_start, seg_size, seg_np = st
+    d, N = cols.shape
+    nb = sdo.shape[0]
+    dev = cols.device
+    pos = torch.arange(N, dtype=_I64, device=dev)
+    sdoN = sdo[:, None, :].expand(nb, N // nb, d).reshape(N, d)  # invariant
     dims_col = torch.arange(d, dtype=_I64, device=dev)[:, None]
     zero = torch.zeros((), dtype=_I64, device=dev)
     neg_inf = torch.full((N,), -np.inf, dtype=_F64, device=dev)
     pos_inf = torch.full((N,), np.inf, dtype=_F64, device=dev)
 
-    for level in range(levels):
+    for level in range(lo, hi):
         act = (seg_np > 1) & (seg_size > 1)
 
         # --- cut dimension (host rule: _longest_dim / alternation) -----
         if d == 1:
             cut = torch.zeros(N, dtype=_I64, device=dev)
-        elif inp.longest_dim:
+        elif longest_dim:
             ext = torch.empty((N, d), dtype=_F64, device=dev)
             for j in range(d):
-                hi = neg_inf.scatter_reduce(0, seg_start, cols[j], "amax")
-                lo = pos_inf.scatter_reduce(0, seg_start, cols[j], "amin")
-                ext[:, j] = (hi - lo)[seg_start]
+                hi_ = neg_inf.scatter_reduce(0, seg_start, cols[j], "amax")
+                lo_ = pos_inf.scatter_reduce(0, seg_start, cols[j], "amin")
+                ext[:, j] = (hi_ - lo_)[seg_start]
             pri = ext.gather(1, sdoN)
             best_p = torch.zeros(N, dtype=_I64, device=dev)
             best_e = pri[:, 0]
@@ -248,12 +300,12 @@ def _sweep(inp: SweepInputs, levels: int) -> torch.Tensor:
         rank = pos - seg_start
 
         # --- cut placement (host rule: searchsorted on the cumsum) ------
-        npl = inp.tab[seg_np]
+        npl = tab[seg_np]
         ratio = npl.to(_F64) / seg_np.to(_F64)
-        if wN is None:
+        if w is None:
             below = (rank + 1).to(_F64) < seg_size.to(_F64) * ratio
         else:
-            cw = segscan(wN[pts], seg_start, seg_size)
+            cw = segscan(w[pts], seg_start, seg_size)
             last = seg_start + seg_size - 1
             below = cw < cw[last] * ratio
         k = torch.zeros(N, dtype=_I64, device=dev).index_add_(
@@ -264,12 +316,12 @@ def _sweep(inp: SweepInputs, levels: int) -> torch.Tensor:
         right = rank >= k
         ar = act & right
         mu = mu + torch.where(ar, npl, zero)
-        if inp.sfc == "Gray":
+        if sfc == "Gray":
             cols = torch.where(ar[None, :], -cols, cols)
-        elif inp.sfc == "FZ":
+        elif sfc == "FZ":
             oh = (dims_col == cut[None, :]) & ar[None, :]
             cols = torch.where(oh, -cols, cols)
-        elif inp.sfc == "FZlow":
+        elif sfc == "FZlow":
             oh = (dims_col == cut[None, :]) & (act & ~right)[None, :]
             cols = torch.where(oh, -cols, cols)
         seg_np = torch.where(act, torch.where(right, seg_np - npl, npl),
@@ -277,9 +329,128 @@ def _sweep(inp: SweepInputs, levels: int) -> torch.Tensor:
         seg_start = torch.where(ar, seg_start + k, seg_start)
         seg_size = torch.where(act, torch.where(right, seg_size - k, k),
                                seg_size)
+    return SweepState(pts, cols, mu, seg_start, seg_size, seg_np)
 
-    out = torch.empty(N, dtype=_I64, device=dev).scatter_(0, pts, mu)
-    return out.view(nb, n)
+
+def part_numbers(st: SweepState, nb: int) -> torch.Tensor:
+    """The (nb, n) part numbers in point order: ``mu`` put back by
+    ``pts``."""
+    N = st.pts.numel()
+    out = torch.empty(N, dtype=_I64, device=st.pts.device).scatter_(
+        0, st.pts, st.mu)
+    return out.view(nb, N // nb)
+
+
+def _sweep(inp: SweepInputs, levels: int, plan: tuple) -> torch.Tensor:
+    """The torch loop for levels ``0 .. l0 - 1``, then ``mjfinish`` for
+    the rest, as ``plan = (l0, heads, cap)`` (:func:`_finish_plan`) says;
+    ``l0 = -1``: the loop for every level."""
+    nb, n = inp.shape
+    l0, heads, cap = plan
+    st = initial_state(inp)
+    kw = dict(sfc=inp.sfc, longest_dim=inp.longest_dim)
+    if l0 < 0:
+        w = inp.w.repeat(nb) if inp.w is not None else None
+        st = mj_levels(st, inp.sdo, inp.tab, lo=0, hi=levels, w=w, **kw)
+        return part_numbers(st, nb)
+    st = mj_levels(st, inp.sdo, inp.tab, lo=0, hi=l0, **kw)
+    return mjfinish(*st, inp.sdo, inp.tab, heads, level=l0, levels=levels,
+                    cap=cap, **kw)
+
+
+# ---------------------------------------------------------------------------
+# where mjfinish takes over (host side)
+# ---------------------------------------------------------------------------
+
+_NO_HANDOFF = (-1, None, 0)
+
+
+def _unweighted_segments(n: int, nparts: int, uneven_prime: bool):
+    """One candidate's segments at each level of an unweighted sweep,
+    level 0 first, until none is live: (sizes, parts, live) in position
+    order.  Without weights the cut is the loop's rank rule alone,
+    ``#{r : (r + 1) < size * (npl / np)}``, whose count is
+    ``ceil(size * (npl / np)) - 1`` clamped to ``[0, size]`` (the same
+    float64 operations), so the sizes do not depend on the points."""
+    tab = _split_table(nparts, uneven_prime).astype(np.int64)
+    size = np.array([n], dtype=np.int64)
+    parts = np.array([nparts], dtype=np.int64)
+    while True:
+        live = (parts > 1) & (size > 1)
+        yield size, parts, live
+        if not live.any():
+            return
+        npl = tab[parts]
+        x = size.astype(np.float64) * (npl.astype(np.float64)
+                                       / parts.astype(np.float64))
+        below = np.clip(np.ceil(x) - 1.0, 0.0, size).astype(np.int64)
+        k = np.minimum(np.maximum(below + 1, 1), np.maximum(size - 1, 1))
+        # a live segment becomes (k, npl) then (size - k, np - npl)
+        at = np.cumsum(1 + live) - (1 + live)
+        new_size = np.empty(len(size) + int(live.sum()), dtype=np.int64)
+        new_parts = np.empty_like(new_size)
+        new_size[at] = np.where(live, k, size)
+        new_parts[at] = np.where(live, npl, parts)
+        new_size[at[live] + 1] = (size - k)[live]
+        new_parts[at[live] + 1] = (parts - npl)[live]
+        size, parts = new_size, new_parts
+
+
+@functools.lru_cache(maxsize=64)
+def _handoff_plan(n: int, nparts: int, uneven_prime: bool, d: int,
+                  levels: int, device: str
+                  ) -> tuple[int, torch.Tensor | None, int]:
+    """Where ``mjfinish`` takes over an unweighted sweep of ``levels``
+    levels of ``n`` ``d``-dimensional points into ``nparts`` parts, from
+    one walk of :func:`_unweighted_segments`: ``(l0, heads, cap)``, with
+    ``l0`` the first level whose live segments all fit one block,
+    ``heads`` the first position, within one candidate, of every segment
+    at ``l0`` (on ``device``, uploaded once, from pinned memory so that
+    the copy waits for nothing) and ``cap`` the power of two that holds
+    the largest live one; ``(-1, None, 0)`` when no level below
+    ``levels`` fits.  Host arithmetic, nothing read from a device."""
+    tile = max_tile(d)
+    if tile == 0 or n == 0 or not 1 < nparts < 2 ** 31:
+        return _NO_HANDOFF
+    for level, (size, _, live) in zip(
+            range(levels), _unweighted_segments(n, nparts, uneven_prime)):
+        largest = int(size[live].max()) if live.any() else 1
+        if largest > tile:
+            continue
+        heads = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(size)[:-1]]).astype(np.int64))
+        if torch.device(device).type == "cuda":
+            heads = heads.pin_memory().to(device, non_blocking=True)
+        cap = max(2, 1 << (largest - 1).bit_length())
+        return level, heads.to(device), cap
+    return _NO_HANDOFF
+
+
+def _finish_plan(inp: SweepInputs, levels: int
+                 ) -> tuple[int, torch.Tensor | None, int]:
+    """The :func:`_handoff_plan` of the sweep ``inp`` when it is
+    unweighted, Multi-Jagged and on a CUDA device; ``(-1, None, 0)``
+    (the loop runs every level) otherwise."""
+    nb, n = inp.shape
+    if (inp.w is not None or inp.sfc == "H" or nb == 0
+            or inp.cols.device.type != "cuda"):
+        return _NO_HANDOFF
+    return _handoff_plan(n, inp.nparts, inp.uneven_prime,
+                         inp.cols.shape[0], levels, str(inp.cols.device))
+
+
+def finish_level(inp: SweepInputs, levels: int) -> int:
+    """The level from which ``mjfinish`` finishes the sweep ``inp`` of
+    ``levels`` levels, or -1 when the torch loop runs every level."""
+    return _finish_plan(inp, levels)[0]
+
+
+def _note_finish(l0: int) -> None:
+    """Append the sweep's handoff level to the open span's
+    ``finish_from`` (one entry a sweep, in call order)."""
+    sp = obs.current_span()
+    if sp is not None:
+        sp.annotate(finish_from=[*sp.attrs.get("finish_from", ()), l0])
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +548,6 @@ def partition(
     """:func:`upload` then :func:`run` as one traced, fault-injectable
     device span (``partition.torch``): the (B, n) int64 part numbers,
     left on ``device``."""
-    from repro_torch import obs
     with obs.span("partition.torch", points=len(coords), nparts=int(nparts),
                   batch=len(dim_orders), device=device):
         return run(upload(coords, nparts, sfc, dim_orders=dim_orders,

@@ -304,12 +304,16 @@ def test_kernel_modules_import_without_toolchain():
                  "repro_torch.kernels.segscan",
                  "repro_torch.kernels.segscan.kernel",
                  "repro_torch.kernels.segscan.ops",
-                 "repro_torch.kernels.segscan.ref"):
+                 "repro_torch.kernels.segscan.ref",
+                 "repro_torch.kernels.mjfinish",
+                 "repro_torch.kernels.mjfinish.kernel",
+                 "repro_torch.kernels.mjfinish.ops",
+                 "repro_torch.kernels.mjfinish.ref"):
         importlib.import_module(name)
     from repro_torch.kernels import _build
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["flash_attention.cu", "mapscore.cu", "segscan.cu",
-                    "ssd.cu"]
+    assert srcs == ["flash_attention.cu", "mapscore.cu", "mjfinish.cu",
+                    "segscan.cu", "ssd.cu"]
     assert _build.build_info() == {} or "path" in _build.build_info()
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(_build.KernelBuildFailure, match="nvcc not found"):

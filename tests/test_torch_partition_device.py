@@ -6,7 +6,10 @@ bit — every SFC kind including Hilbert, weights with zero-weight points,
 points, strict alternation, batched ``dim_orders``, the scenario
 registry's point clouds — on inputs made with numpy from a seed.  Also
 the split table, the fixed level count (extra levels change nothing),
-and ``segscan``'s plain version against per-segment ``np.cumsum``.
+``segscan``'s plain version against per-segment ``np.cumsum``, and the
+``mjfinish`` handoff: the host plan of segment sizes against the loop's,
+the loop stopped at any level and finished by ``mjfinish``'s plain
+version against the whole loop, and the wrapper's checks.
 
 The reference entry points turn on ``jax_enable_x64`` for the whole
 process (``repro.core.partition_jax``), as ``tests/test_partition_jax.py``
@@ -22,6 +25,8 @@ import torch
 import repro.core.orderings as RO
 import repro_torch.core.orderings as PO
 from repro_torch.core import partition_torch as PT
+from repro_torch.kernels.mjfinish import max_tile, mjfinish, mjfinish_ref
+from repro_torch.kernels.mjfinish import ops as mj_ops
 from repro_torch.kernels.segscan import ops as seg_ops
 from repro_torch.kernels.segscan import segscan, segscan_ref
 
@@ -305,3 +310,207 @@ def test_segscan_wrapper_checks():
     assert segscan(torch.zeros(0, dtype=torch.float64),
                    torch.zeros(0, dtype=torch.int64),
                    torch.zeros(0, dtype=torch.int64)).numel() == 0
+
+
+# ---------------------------------------------------------------------------
+# mjfinish: the host plan, the handoff to the plain version, the wrapper
+# ---------------------------------------------------------------------------
+
+def _live_largest(st):
+    live = (st.seg_np > 1) & (st.seg_size > 1)
+    return int(st.seg_size[live].max()) if bool(live.any()) else 0
+
+
+# (n, nparts, uneven_prime, nb, d): the four main-path shapes (both sides
+# of the cold cells, the node cell's router side and its coarsening), then
+# odd counts, uneven primes, more parts than points
+PLAN_SHAPES = [
+    (131072, 131072, False, 1, 1),
+    (86400, 86400, False, 1, 1),
+    (4096, 4096, False, 2, 3),
+    (131072, 4096, False, 1, 1),
+    (5000, 97, True, 3, 2),
+    (3001, 3001, True, 2, 4),
+    (777, 2000, False, 2, 3),
+    (10000, 10000, True, 1, 2),
+]
+
+
+@pytest.mark.parametrize("n,nparts,uneven,nb,d", PLAN_SHAPES)
+def test_mjfinish_plan_equals_the_loops_segments(n, nparts, uneven, nb, d):
+    """The host plan's largest live segment at every level is the loop's,
+    on points whose coordinates the sizes must not depend on."""
+    rng = np.random.default_rng(n + nparts + d)
+    coords = rng.integers(0, 5, size=(n, d)).astype(np.float64)
+    dos = np.stack([rng.permutation(d) for _ in range(nb)])
+    inp = PT.upload(coords, nparts, "FZ", dim_orders=dos,
+                    uneven_prime=uneven, device="cpu")
+    plan = [int(size[live].max()) for size, _, live
+            in PT._unweighted_segments(n, nparts, uneven) if live.any()]
+    l0, heads, cap = PT._handoff_plan(n, nparts, uneven, d, inp.levels,
+                                      "cpu")
+    st = PT.initial_state(inp)
+    pos = torch.arange(n)
+    seen = []
+    for level in range(inp.levels + 1):
+        seen.append(_live_largest(st))
+        if level == l0:
+            want_heads = pos[st.seg_start[:n] == pos]
+        st = PT.mj_levels(st, inp.sdo, inp.tab, sfc="FZ", longest_dim=True,
+                          lo=level, hi=level + 1)
+    assert len(plan) <= inp.levels
+    assert list(plan) + [0] * (len(seen) - len(plan)) == seen
+    assert l0 == next(lv for lv, big in enumerate(seen)
+                      if big <= max_tile(d))
+    assert torch.equal(heads, want_heads)
+    assert cap >= seen[l0] and cap & (cap - 1) == 0
+
+
+def test_mjfinish_handoff_levels_of_the_main_path():
+    """Level 5 on both sides of the cold cells and for the node cell's
+    coarsening, level 0 for its router side; CPU tensors hand nothing
+    over."""
+    def l0(n, nparts, d, levels):
+        return PT._handoff_plan(n, nparts, False, d, levels, "cpu")[0]
+
+    assert max_tile(3) == 4096 and max_tile(4) == 2048
+    assert max_tile(0) == max_tile(7) == 0
+    assert l0(131072, 131072, 3, 17) == 5
+    assert l0(86400, 86400, 3, 17) == 5
+    assert l0(4096, 4096, 3, 12) == 0
+    assert l0(131072, 4096, 3, 12) == 5
+    assert l0(131072, 131072, 4, 17) == 6
+    assert l0(131072, 131072, 3, 5) == -1
+    assert l0(131072, 1, 3, 17) == -1
+    _, heads, cap = PT._handoff_plan(131072, 131072, False, 3, 17, "cpu")
+    assert cap == 4096 and torch.equal(heads, torch.arange(32) * 4096)
+    inp = PT.upload(np.zeros((8, 3)), 4, "FZ", dim_orders=[[0, 1, 2]],
+                    device="cpu")
+    assert PT.finish_level(inp, inp.levels) == -1
+
+
+def _handoff_equal(coords, nparts, sfc, dos, *, longest=True, uneven=False,
+                   extra=0):
+    """The loop stopped at every level and finished by mjfinish's plain
+    version (directly and through the wrapper) equals the whole loop."""
+    inp = PT.upload(coords, nparts, sfc, dim_orders=dos, longest_dim=longest,
+                    uneven_prime=uneven, device="cpu")
+    levels = inp.levels + extra
+    want = PT.run(inp, levels=levels)
+    n, d = coords.shape
+    l0 = PT._handoff_plan(n, nparts, uneven, d, levels, "cpu")[0]
+    stops = sorted({0, max(l0, 0), levels // 2, levels})
+    n0 = mj_ops.launch_count
+    for stop in stops:
+        st = PT.mj_levels(PT.initial_state(inp), inp.sdo, inp.tab, sfc=sfc,
+                          longest_dim=inp.longest_dim, lo=0, hi=stop)
+        got = mjfinish_ref(*st, inp.sdo, inp.tab, level=stop, levels=levels,
+                           sfc=sfc, longest_dim=inp.longest_dim)
+        assert torch.equal(got, want), (sfc, stop, int((got != want).sum()))
+        pos = torch.arange(n)
+        heads = pos[st.seg_start[:n] == pos]
+        again = mjfinish(*st, inp.sdo, inp.tab, heads, level=stop,
+                         levels=levels, cap=max_tile(d), sfc=sfc,
+                         longest_dim=inp.longest_dim)
+        assert torch.equal(again, want)
+    assert mj_ops.launch_count == n0  # the CPU runs the plain version
+    return want
+
+
+@pytest.mark.parametrize("sfc", SFCS)
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_mjfinish_ref_after_the_loop_equals_the_sweep(sfc, d):
+    rng = np.random.default_rng(40 + d)
+    n = 4700 if d < 4 else 2600          # past one block's tile
+    coords = rng.normal(size=(n, d))
+    dos = np.stack([rng.permutation(d) for _ in range(2)])
+    for longest in (True, False):
+        _handoff_equal(coords, n // 2, sfc, dos, longest=longest,
+                       uneven=d % 2 == 0)
+
+
+@pytest.mark.parametrize("sfc", ("FZ", "Gray", "FZlow"))
+def test_mjfinish_ref_signed_zeros_duplicates_and_extra_levels(sfc):
+    rng = np.random.default_rng(8)
+    pts = rng.integers(-2, 3, size=(600, 3)).astype(np.float64)
+    flip = rng.random(pts.shape) < 0.5
+    pts[flip] = -pts[flip]
+    assert np.signbit(pts[pts == 0]).any()
+    dos = np.array([[0, 1, 2], [2, 0, 1]])
+    want = _handoff_equal(pts, 32, sfc, dos, extra=3)
+    assert np.array_equal(want.numpy(), RO.order_points_batched(
+        pts, 32, sfc, dim_orders=dos, backend="jax"))
+    grid = np.repeat(rng.integers(0, 3, size=(1000, 2)), 5, axis=0
+                     ).astype(np.float64)
+    _handoff_equal(grid, 700, sfc, np.array([[1, 0]]), extra=2)
+
+
+def test_the_sweep_hands_off_where_finish_level_says(monkeypatch):
+    """The handoff path of ``run`` (taken on a CUDA device) with the
+    device test stood in for: the loop to the handoff level, the planned
+    heads, the wrapper (here its plain version) equal the whole loop and
+    the reference's partitioner (JAX), and each sweep appends its handoff
+    level to the open span."""
+    from repro_torch import obs
+    rng = np.random.default_rng(12)
+    coords = rng.normal(size=(9000, 3))
+    dos = np.array([[0, 1, 2], [2, 1, 0]])
+    inp = PT.upload(coords, 9000, "FZ", dim_orders=dos, device="cpu")
+    w_inp = PT.upload(coords, 9000, "FZ", dim_orders=dos, device="cpu",
+                      weights=rng.random(9000))
+    with obs.span("probe") as sp:
+        want = PT.run(inp)
+        assert sp.attrs["finish_from"] == [-1]
+        monkeypatch.setattr(PT, "_finish_plan", lambda i, levels: (
+            PT._NO_HANDOFF if i.w is not None else PT._handoff_plan(
+                i.shape[1], i.nparts, i.uneven_prime, i.cols.shape[0],
+                levels, "cpu")))
+        assert torch.equal(PT.run(inp), want)
+        PT.run(w_inp)
+    assert sp.attrs["finish_from"] == [-1, 2, -1]   # 9,000 > 4,500 > 4,096
+    assert np.array_equal(want.numpy(), RO.order_points_batched(
+        coords, 9000, "FZ", dim_orders=dos, backend="jax"))
+
+
+def test_mjfinish_wrapper_checks():
+    n, nb, d = 8, 2, 3
+    N = n * nb
+    i64 = torch.zeros(N, dtype=torch.int64)
+    cols = torch.zeros((d, N), dtype=torch.float64)
+    sdo = torch.zeros((nb, d), dtype=torch.int64)
+    tab = torch.zeros(9, dtype=torch.int64)
+    heads = torch.zeros(1, dtype=torch.int64)
+
+    def call(**over):
+        args = dict(pts=i64, cols=cols, mu=i64, seg_start=i64, seg_size=i64,
+                    seg_np=i64, sdo=sdo, tab=tab, heads=heads)
+        kw = dict(level=0, levels=0, cap=8, sfc="FZ", longest_dim=True)
+        for key, val in over.items():
+            (args if key in args else kw)[key] = val
+        return mjfinish(*args.values(), **kw)
+
+    assert call().shape == (nb, n)
+    with pytest.raises(TypeError, match="float64"):
+        call(cols=cols.float())
+    with pytest.raises(TypeError, match="int64"):
+        call(mu=i64.int())
+    with pytest.raises(ValueError, match=r"\(16,\)"):
+        call(seg_np=i64[:5])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(cols=torch.zeros((N, d), dtype=torch.float64).T)
+    with pytest.raises(ValueError, match="split into"):
+        call(sdo=torch.zeros((3, d), dtype=torch.int64))
+    with pytest.raises(ValueError, match="lies on"):
+        call(heads=torch.zeros(1, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="sfc"):
+        call(sfc="H")
+    with pytest.raises(ValueError, match="heads must list"):
+        call(heads=torch.zeros(0, dtype=torch.int64))
+    with pytest.raises(ValueError, match="heads must list"):
+        call(heads=torch.zeros(n + 1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="power of two"):
+        call(cap=6)
+    with pytest.raises(ValueError, match="power of two"):
+        call(cap=8192)
+    with pytest.raises(ValueError, match="outside"):
+        call(level=2, levels=1)

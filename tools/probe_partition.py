@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Probe of the device partitioner and the segscan kernel on one GPU.
+"""Probe of the device partitioner and its kernels (segscan, mjfinish)
+on one GPU.
 
 Run from the repository root (one CUDA device and ``nvcc``)::
 
     python3 tools/probe_partition.py [--scale 262144] [--profile]
+                                     [--mjfinish]
 
-1. ``nvcc -Xptxas -v`` on ``csrc/segscan.cu``: registers, spills;
+1. ``nvcc -Xptxas -v`` on ``csrc/segscan.cu`` and ``csrc/mjfinish.cu``:
+   registers, shared memory, spills; with ``--mjfinish``, mjfinish at
+   the main path's shapes (``chip_smoke.mjfinish_cases``) first;
 2. segscan against its plain version, exactly, on random segment
    layouts, and a rerun bit for bit;
 3. the device engine (``core/partition_torch.py``) against the host
    engine on random clouds (every SFC, weights with zeros, uneven
    primes, dims 1-3, strict alternation, duplicate-heavy grids) and on
    ``chip_smoke.signed_zero_cloud`` under FZ and Gray, each sweep under
-   ``set_sync_debug_mode("error")``;
+   ``set_sync_debug_mode("error")`` (an unweighted one launches mjfinish
+   where it hands off);
 4. with ``--scale``: both sides of ``chip_smoke.SCENARIOS[1]``'s rotation
    sweep at that many tasks, unweighted and with weights on the task
    side, through ``chip_smoke.partition_case`` (host engine and device
@@ -35,18 +40,19 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
-SRC = "src/repro_torch/kernels/segscan/csrc/segscan.cu"
+SRCS = ("src/repro_torch/kernels/segscan/csrc/segscan.cu",
+        "src/repro_torch/kernels/mjfinish/csrc/mjfinish.cu")
 
 
-def ptxas_report() -> str:
+def ptxas_report(src: str) -> str:
     from repro_torch.kernels import _build
     with tempfile.TemporaryDirectory() as tmp:
         r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
                             "-Xptxas", "-v", "-c", "-o",
-                            os.path.join(tmp, "segscan.o"),
-                            os.path.join(ROOT, SRC)],
+                            os.path.join(tmp, "kernel.o"),
+                            os.path.join(ROOT, src)],
                            capture_output=True, text=True)
-    return f"nvcc exit {r.returncode}\n{r.stdout}{r.stderr}"
+    return f"{src}: nvcc exit {r.returncode}\n{r.stdout}{r.stderr}"
 
 
 def random_cases(count: int):
@@ -79,6 +85,7 @@ def main() -> int:
     ap.add_argument("--rotations", type=int, default=8)
     ap.add_argument("--cases", type=int, default=60)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--mjfinish", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -91,9 +98,13 @@ def main() -> int:
         print("probe_partition: no CUDA device", file=sys.stderr)
         return 1
     print(cs.nvidia_smi_line(), flush=True)
-    print(ptxas_report(), flush=True)
+    for src in SRCS:
+        print(ptxas_report(src), flush=True)
     kernel._launch_fn()
     print("build", _build.build_info(), flush=True)
+    if args.mjfinish:
+        for rec in cs.mjfinish_cases():
+            print("mjfinish", rec, flush=True)
 
     rng = np.random.default_rng(1)
     for i in range(8):
