@@ -1,17 +1,19 @@
 """mapscore_roofline: the scoring kernel's (K1's) share of its roofline,
 in percent.
 
-The least time of one launch's work (``pbench.cost.scoring_work``: the
-bytes of each input read once and each output written once at the HBM
-rate, or the operations at the float32 rate if that is longer, counted
-from the request's shapes) over the profiler's device time of the
-kernel's launches, per launch.  A launch is counted by the program's
-``launch_count``, read as the window opens (``start``) and after it; its
-kernels are the device operations whose names match ``PATTERNS``.  The
-metric is read only where every launch is a rotation sweep's (one a
-``pipeline.fused`` span), each scoring the request's whole candidate
-stack: the tasks and cores of a flat request, the clusters and routers
-of a node-hierarchy one."""
+The least time of the window's launches' work (``pbench.cost.
+scoring_work``: the bytes of each input read once and each output
+written once at the HBM rate, or the operations at the float32 rate if
+that is longer, counted from each launch's own request's shapes) over
+the profiler's device time of the kernel's launches.  A launch is
+counted by the program's ``launch_count``, read as the window opens
+(``start``) and after it; its kernels are the device operations whose
+names match ``PATTERNS``.  The metric is read only where every launch
+is a rotation sweep's (one a ``pipeline.fused`` span), each scoring the
+request's whole candidate stack: the tasks and cores of a flat request,
+the clusters and routers of a node-hierarchy one, sized by the job that
+request sent (its span's ``trace_id``), so that a pool mixing job shapes
+weighs each launch by its own work."""
 
 from pbench.cost import scoring_work
 from pbench.ref.engine import OBJECTIVES
@@ -29,10 +31,12 @@ def start():
     return launch_count()
 
 
-def sweep_shapes(config: dict, mix: dict, job) -> dict:
+def sweep_shapes(config: dict, mix: dict, job, contracted=None) -> dict:
     """The shapes of the stack a request's rotation sweep scores: tasks
     and cores one a task (flat), or the clusters and their contracted
-    edges (node; the clusters depend on the task graph alone)."""
+    edges (node; the clusters depend on the task graph and their count
+    alone, so ``contracted`` may keep the count of contracted edges by
+    ``(job.variant, clusters)``)."""
     m = job.machine
     tasks, edges = len(job.task_coords), len(job.edges)
     if mix["hierarchy"] == "node":
@@ -40,8 +44,13 @@ def sweep_shapes(config: dict, mix: dict, job) -> dict:
         nrouters = len(router_view(job.alloc, m.nd)[0])
         arity = -(-len(job.alloc) // nrouters)      # cores a router
         tasks = min(nrouters, -(-tasks // arity))
-        edges = len(aggregate(job.task_coords, job.edges, job.weights,
-                              tasks, config["pipeline"]["sfc"])[3])
+        memo = {} if contracted is None else contracted
+        key = (job.variant, tasks)
+        if key not in memo:
+            memo[key] = len(aggregate(job.task_coords, job.edges,
+                                      job.weights, tasks,
+                                      config["pipeline"]["sfc"])[3])
+        edges = memo[key]
     elif mix["hierarchy"] != "flat":
         return None
     return {"tasks": tasks, "edges": edges, "dims": tuple(m.dims),
@@ -64,8 +73,19 @@ def read(run):
     cands = {f.attrs.get("candidates") for f in fused}
     if len(cands) != 1 or None in cands:
         return None
-    shapes = sweep_shapes(run.config, run.mix, run.jobs[0])
-    if shapes is None:
+    candidates = cands.pop()
+    job_of = {a.get("trace_id"): a["job"] for a in run.requests}
+    if any(f.trace_id not in job_of for f in fused):
         return None
-    work = scoring_work(candidates=cands.pop(), **shapes)
-    return 100.0 * work["least_s"] / (device_s / launches)
+    least, by_job, contracted = 0.0, {}, {}
+    for f in fused:
+        j = job_of[f.trace_id]
+        if j not in by_job:
+            shapes = sweep_shapes(run.config, run.mix, run.jobs[j],
+                                  contracted)
+            if shapes is None:
+                return None
+            by_job[j] = scoring_work(candidates=candidates,
+                                     **shapes)["least_s"]
+        least += by_job[j]
+    return 100.0 * least / device_s

@@ -52,21 +52,29 @@ class Run:
 
 class Port:
     """The program: a fresh ``MappingService`` and a launcher that sends
-    each request as a new ``MappingRequest`` built from a job's arrays."""
+    each request as a new ``MappingRequest`` built from a job's arrays,
+    with one ``TaskGraph`` and one machine a variant of the
+    configuration, shared by that variant's jobs."""
 
     def __init__(self, config: dict, mix: dict, jobs: list, device: str,
                  score_backend: str | None = None):
         from repro_torch.core import Allocation, TaskGraph, make_machine
         from repro_torch.mapping import HierarchySpec, PipelineConfig
         from repro_torch.serve import MappingRequest, MappingService
-        m = jobs[0].machine
-        machine = make_machine(
-            m.dims, wrap=m.wrap, core_dims=m.core_dims,
-            bw_patterns=[np.array(p) for p in m.link_bw]
-            + [np.array([math.inf])] * m.core_dims)
-        self.graph = TaskGraph(jobs[0].task_coords, jobs[0].edges,
-                               jobs[0].weights)
-        self.allocs = [Allocation(machine, j.alloc) for j in jobs]
+        self.graphs, machines = {}, {}
+        for j in jobs:
+            if j.variant in machines:
+                continue
+            m = j.machine
+            machines[j.variant] = make_machine(
+                m.dims, wrap=m.wrap, core_dims=m.core_dims,
+                bw_patterns=[np.array(p) for p in m.link_bw]
+                + [np.array([math.inf])] * m.core_dims)
+            self.graphs[j.variant] = TaskGraph(j.task_coords, j.edges,
+                                               j.weights)
+        self.jobs = jobs
+        self.allocs = [Allocation(machines[j.variant], j.alloc)
+                       for j in jobs]
         p = config["pipeline"]
         objective = OBJECTIVES[p["objective"]]
         self.config = PipelineConfig(
@@ -79,7 +87,9 @@ class Port:
         self.service = MappingService(capacity=int(mix["cache_entries"]))
 
     def serve(self, job: int) -> dict:
-        req = self._request(self.graph, self.allocs[job], self.config)
+        j = self.jobs[job]
+        req = self._request(self.graphs[j.variant], self.allocs[job],
+                            self.config, task_weights=j.task_weights)
         t0 = time.perf_counter()
         try:
             resp = self.service.map(req)
@@ -102,17 +112,16 @@ class Control:
     guarantee broken (the winner is the identity rotation's mapping, not
     the best of the configured rotation search)."""
 
-    def __init__(self, config: dict, mix: dict, jobs: list):
+    def __init__(self, config: dict, jobs: list, answer):
         self.jobs = jobs
         self.options = reference_options(config) | {"rotations": 0}
-        self.hierarchy = mix["hierarchy"]
+        self.answer = answer
         self.answers: dict = {}
 
     def serve(self, job: int) -> dict:
         t0 = time.perf_counter()
         if job not in self.answers:
-            self.answers[job] = judge.reference_answers(
-                {job: self.jobs[job]}, self.options, self.hierarchy)[job]
+            self.answers[job] = self.answer(self.jobs[job], **self.options)
         a = self.answers[job]
         return {"job": job, "t0": t0, "t1": time.perf_counter(),
                 "failed": False, "status": "control", "trace_id": None,
@@ -130,6 +139,18 @@ def p90(latencies) -> float:
     """Nearest-rank 90th percentile."""
     xs = sorted(latencies)
     return xs[max(0, math.ceil(0.9 * len(xs)) - 1)]
+
+
+def slice_latencies(answers, lo: float, hi: float, n: int) -> list[list]:
+    """The latencies of the answered requests sent in each of ``n``
+    equal slices of the window ``(lo, hi)``, to show how the host's
+    speed moves within a run."""
+    out = [[] for _ in range(n)]
+    for a in answers:
+        if not a["failed"]:
+            k = int((a["t0"] - lo) / max(hi - lo, 1e-9) * n)
+            out[min(max(k, 0), n - 1)].append(a["t1"] - a["t0"])
+    return out
 
 
 def drive(server, sched, seconds: float, limit: int | None = None
@@ -172,11 +193,13 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool, *,
     config = spec.config(cell["config"])
     mix = spec.traffic(cell["traffic"])
     pool, nwarm = int(mix["pool"]), int(mix["warmup_jobs"])
+    # a hierarchy with no reference is refused before anything is served
+    answer = judge.reference(mix["hierarchy"], spec.bench_dir)
     t_import = time.perf_counter()
-    jobs = gen.job_pool(config, seed, pool + nwarm)
+    jobs = gen.job_pool(config, seed, pool + nwarm, spec.bench_dir)
     t_pool = time.perf_counter()
     server = (Port(config, mix, jobs, device, score_backend)
-              if serve == "port" else Control(config, mix, jobs))
+              if serve == "port" else Control(config, jobs, answer))
     on_card = torch.device(device).type == "cuda"
 
     def sync():
@@ -233,6 +256,9 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool, *,
           + f"; {sum(a['t1'] - a['t0'] for a in answers) / (hi - lo):.3f}"
           " of the window inside requests; the first 8 requests' mean "
           f"{np.mean(lat[:8] or [math.nan]) * 1e3:.2f} ms", file=log)
+    print("slices: median ms in each sixth of the window: " + " ".join(
+        f"{np.median(s) * 1e3:.2f}" if len(s) else "-"
+        for s in slice_latencies(answers, lo, hi, 6)), file=log)
     result = {"attempted": len(answers), "failed": len(answers) - len(done)}
     if traced:
         run = Run(answers, trace.Tree(trace.from_span(s) for s in spans),
@@ -258,7 +284,7 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool, *,
     picked = judge.sample_jobs([a["job"] for a in answers], seed, JUDGED_JOBS)
     refs = judge.reference_answers({j: jobs[j] for j in picked},
                                    reference_options(config),
-                                   mix["hierarchy"])
+                                   mix["hierarchy"], spec.bench_dir)
     judged = [a for a in answers if a["job"] in refs]
     numbers = judge.compare(judged, refs)
     print(f"judged {len(judged)} answers of jobs {picked}; reference "

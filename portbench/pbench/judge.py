@@ -1,10 +1,10 @@
 """The comparison that decides ``correct``.
 
 Once the window has closed, a sample of the jobs served in it, drawn
-from the seed, is mapped again by the plain reference
-(:mod:`pbench.ref.engine`, :mod:`pbench.ref.hier` for the node
-hierarchy), and every answer the window served for those
-jobs is held against it:
+from the seed, is mapped again by the plain reference of the mix's
+hierarchy, ``refs/<hierarchy>.py`` beside this package (its
+``answer(job, **options)``, built on :mod:`pbench.ref`), and every
+answer the window served for those jobs is held against it:
 
 - ``wrong_tasks``: the most tasks of one answer placed on another core
   than the reference places them;
@@ -21,9 +21,11 @@ set from the program's and the control's readings (see ``PERF.md``).
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
-from .ref import engine, hier
+from .spec import BENCH_DIR, load_named
 
 LIMITS = {"wrong_tasks": 0, "wrong_rotations": 0, "score_gap": 1e-4,
           "unanswered": 0}
@@ -38,13 +40,18 @@ def sample_jobs(served: list[int], seed: int, k: int) -> list[int]:
                              replace=False).tolist())
 
 
-REFERENCES = {"flat": engine.map_flat, "node": hier.map_node}
+def reference(hierarchy: str, bench_dir=None):
+    """The ``answer`` of ``refs/<hierarchy>.py`` in the benchmark folder
+    ``bench_dir``; a hierarchy with no file is refused (``ValueError``)."""
+    return load_named(Path(bench_dir or BENCH_DIR) / "refs", hierarchy,
+                      "hierarchy reference").answer
 
 
-def reference_answers(jobs: dict, options: dict, hierarchy: str) -> dict:
+def reference_answers(jobs: dict, options: dict, hierarchy: str,
+                      bench_dir=None) -> dict:
     """The reference's answer for each ``{index: Job}``."""
-    fn = REFERENCES[hierarchy]
-    return {i: fn(job, **options) for i, job in jobs.items()}
+    answer = reference(hierarchy, bench_dir)
+    return {i: answer(job, **options) for i, job in jobs.items()}
 
 
 def compare(answers: list[dict], refs: dict) -> dict:

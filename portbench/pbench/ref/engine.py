@@ -197,17 +197,19 @@ def first_best(rows: list) -> int:
 
 
 def map_flat(job, *, sfc="FZ", shift=True, rotations=8,
-             objective="wh") -> dict:
+             objective="wh", task_weights=None) -> dict:
     """The answer a flat request has to get: ``task_to_proc``, the
     winner's ``rotation`` ((task_perm, proc_perm)) and its ``score``
-    (the objective's first key)."""
+    (the objective's first key); ``task_weights`` weigh the task side's
+    cuts."""
     m = job.machine
     pc = np.asarray(job.alloc[:, :m.nd], dtype=np.float64)
     if shift:
         pc = shift_torus(pc, m)
     tc = np.asarray(job.task_coords, dtype=np.float64)
     cands = rotation_candidates(tc.shape[1], pc.shape[1], rotations)
-    t2p = sweep_assignments(tc, pc, cands, sfc=sfc)
+    t2p = sweep_assignments(tc, pc, cands, sfc=sfc,
+                            task_weights=task_weights)
     keys = OBJECTIVES[objective]
     traffic = "latency_max" in keys
     rows = []

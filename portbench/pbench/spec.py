@@ -1,25 +1,50 @@
-"""Find a cell's configuration, traffic mix and per-layer metrics by the
-names ``BENCHMARK.json`` gives them.
+"""Find a cell's configuration, traffic mix, per-layer metrics, the
+kinds its configuration names and its hierarchy's reference, by the
+names ``BENCHMARK.json`` and those files give them.
 
 A configuration is the file its entry names; a mix is
 ``traffic/<name>.json`` and a per-layer metric is the reader
 ``metrics/<name>.py`` beside this package, whose ``read(run)`` returns
 the metric's value or ``None`` where the run holds nothing to read (and
 whose ``start()``, if it has one, a traced run calls as its window
-opens, to read a counter of the program before the window).
-Adding a cell, a mix or a metric is adding files and entries: nothing
-here names one.
+opens, to read a counter of the program before the window).  A
+configuration's graph, machine and allocation are built by
+``kinds/<part>/<kind>.py`` (:mod:`pbench.gen`), and a mix's hierarchy is
+judged by ``refs/<hierarchy>.py`` (:mod:`pbench.judge`), each found by
+:func:`load_named`.  Adding a cell, a mix, a metric, a kind or a
+reference is adding files and entries: nothing here names one.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
+import sys
 from pathlib import Path
 
 from . import traffic as _traffic
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}\Z")
+
+
+def load_named(directory: Path | str, name, what: str):
+    """The module ``<directory>/<name>.py``.  A name that is not a
+    benchmark name, or that has no file there, is refused with a
+    ``ValueError`` naming ``what`` it was, the name and the directory
+    searched."""
+    path = Path(directory) / f"{name}.py"
+    if not (isinstance(name, str) and NAME.match(name) and path.is_file()):
+        raise ValueError(f"no {what} {name!r}: no file {name}.py in "
+                         f"{directory}")
+    mod_name = "pbench_" + "".join(c if c.isalnum() else "_"
+                                   for c in f"{what}_{name}")
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod       # so a dataclass in it resolves
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Spec:
@@ -61,10 +86,4 @@ class Spec:
     def reader_module(self, metric: str):
         """``metrics/<metric>.py``: its ``read(run)``, and an optional
         ``start()`` that a traced run calls as its window opens."""
-        path = self.bench_dir / "metrics" / f"{metric}.py"
-        mod_name = "pbench_metric_" + "".join(
-            c if c.isalnum() else "_" for c in metric)
-        spec = importlib.util.spec_from_file_location(mod_name, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        return load_named(self.bench_dir / "metrics", metric, "metric")

@@ -1,6 +1,14 @@
 """A tiny copy of the benchmark for the CPU tests: every configuration of
-``BENCHMARK.json`` with its graph and machine shrunk, in a temporary
-root beside the real folder's files."""
+``BENCHMARK.json`` shrunk, in a temporary root beside the real folder's
+files.
+
+A configuration gives its own CPU-test sizes under the key ``tiny``: an
+object laid out as the configuration, whose values replace the
+configuration's (objects merged key by key, lists of objects as long
+as the configuration's, such as ``variants``, entry by entry; anything
+else replaced).  The two configurations from before that key keep the sizes
+below, by their graph's kind.
+"""
 
 import json
 from pathlib import Path
@@ -14,9 +22,26 @@ TINY = {
 }
 
 
+def merged(base, over):
+    """``base`` with ``over``'s values in its place."""
+    if isinstance(base, dict) and isinstance(over, dict):
+        return {**base, **{k: merged(base.get(k), v)
+                           for k, v in over.items()}}
+    if (isinstance(base, list) and isinstance(over, list)
+            and len(base) == len(over)
+            and all(isinstance(o, dict) for o in over)):
+        return [merged(b, o) for b, o in zip(base, over)]
+    return over
+
+
 def tiny_config(cfg: dict) -> dict:
-    graph, tasks = TINY[cfg["graph"]["kind"]]
     cfg = json.loads(json.dumps(cfg))
+    if "tiny" in cfg:
+        return merged(cfg, cfg.pop("tiny"))
+    if cfg.get("graph", {}).get("kind") not in TINY:
+        raise ValueError(f"configuration {cfg.get('name')!r} gives no "
+                         "sizes for the CPU tests under the key 'tiny'")
+    graph, tasks = TINY[cfg["graph"]["kind"]]
     cfg["graph"].update(graph)
     cfg["allocation"]["tasks"] = tasks
     cfg["machine"]["router_dims"] = [5, 4, 6]

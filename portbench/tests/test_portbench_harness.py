@@ -9,8 +9,9 @@ import textwrap
 import numpy as np
 import pytest
 
-from pbench import cost, gen, trace
+from pbench import cost, gen, judge, trace
 from pbench import traffic as tr
+from pbench import cell as pcell
 from pbench.cell import Run
 from pbench.ref import engine, hier
 from pbench.spec import Spec
@@ -50,13 +51,45 @@ def test_job_pool_is_deterministic_per_seed():
     assert not np.array_equal(a[0].alloc, a[1].alloc)
 
 
-@pytest.mark.parametrize("part", ["graph", "machine", "allocation"])
+@pytest.mark.parametrize("part", ["graph", "machine", "allocation",
+                                  "hierarchy"])
 def test_an_unknown_kind_is_refused(part):
     cfg = tiny_config(json.loads(
         (BENCH_DIR / "configs" / "minighost-xk7.json").read_text()))
-    cfg[part]["kind"] = "bgq-contiguous-block"
-    with pytest.raises(ValueError, match="bgq-contiguous-block"):
-        gen.job_pool(cfg, 1, 1)
+    if part == "hierarchy":
+        searched = BENCH_DIR / "refs"
+        with pytest.raises(ValueError, match="bgq-contiguous-block") as e:
+            judge.reference_answers({}, {}, "bgq-contiguous-block")
+    else:
+        searched = BENCH_DIR / "kinds" / part
+        cfg[part]["kind"] = "bgq-contiguous-block"
+        with pytest.raises(ValueError, match="bgq-contiguous-block") as e:
+            gen.job_pool(cfg, 1, 1)
+    assert str(searched) in str(e.value)
+
+
+def test_an_unknown_hierarchy_is_refused_before_the_window(
+        tmp_path, monkeypatch):
+    """``depth3`` is a hierarchy the program serves and no file of
+    ``refs/`` judges: the run stops before it serves a request."""
+    from pbench import cell as pcell
+    bench_dir = tmp_path / "portbench"
+    shutil.copytree(BENCH_DIR, bench_dir, ignore=shutil.ignore_patterns(
+        "tests", "__pycache__"))
+    root = tiny_root(tmp_path)
+    mix = json.loads((bench_dir / "traffic" / "cold.json").read_text())
+    (bench_dir / "traffic" / "cold.json").write_text(
+        json.dumps(mix | {"hierarchy": "depth3"}))
+
+    def no_window(*a, **k):
+        raise AssertionError("the window opened")
+
+    monkeypatch.setattr(pcell, "drive", no_window)
+    monkeypatch.setattr(pcell.Port, "serve", no_window)
+    with pytest.raises(ValueError, match="depth3"):
+        pcell.run_cell(Spec(root, bench_dir), "minighost-xk7.cold", 1, 0.3,
+                       False, t_start=0.0, device="cpu",
+                       score_backend="torch")
 
 
 def test_relaunch_draws_its_repeats_from_the_seed():
@@ -121,7 +154,8 @@ def synthetic_run(ops=(), launches=0):
                   np.ones(6), np.zeros((4, 4), dtype=np.int64),
                   engine.Machine((2, 2, 2, 2), (True, True, True, False),
                                  ((1.0,), (1.0,), (1.0,))))
-    return Run([], trace.Tree(SYNTHETIC), list(ops), (0.0, 11.0),
+    return Run([{"job": 0, "trace_id": "t"}], trace.Tree(SYNTHETIC),
+               list(ops), (0.0, 11.0),
                {"pipeline": {"objective": "wh", "sfc": "FZ"}},
                {"hierarchy": "flat"}, [job],
                {"mapscore_roofline": k1_ops.launch_count - launches})
@@ -155,6 +189,27 @@ def test_metric_readers_on_synthetic_spans():
     # nothing to read: no launch, or launches that are not all sweeps'
     assert spec.reader("mapscore_roofline")(synthetic_run()) is None
     assert spec.reader("mapscore_roofline")(synthetic_run(launches=2)) is None
+
+
+def test_request_p90_reader_counts_a_failed_request_as_slowest():
+    read = Spec(REPO, BENCH_DIR).reader("service.request_ms_p90")
+    reqs = [{"t0": 0.0, "t1": 0.001 * (i + 1), "failed": False}
+            for i in range(10)]
+    assert read(Run(reqs, trace.Tree([]), [], (0, 1), {}, {}, [])
+                ) == pytest.approx(9.0)         # the 9th of 10
+    for r in reqs[-2:]:
+        r["failed"] = True
+    assert read(Run(reqs, trace.Tree([]), [], (0, 1), {}, {}, [])
+                ) == float("inf")
+    assert read(Run([], trace.Tree([]), [], (0, 1), {}, {}, [])) is None
+
+
+def test_slices_split_the_window_by_send_time():
+    answers = [{"t0": t, "t1": t + 0.01, "failed": False}
+               for t in (0.0, 0.5, 2.9, 3.0, 5.99)]
+    answers.append({"t0": 1.0, "t1": 9.0, "failed": True})
+    parts = pcell.slice_latencies(answers, 0.0, 6.0, 3)
+    assert [len(p) for p in parts] == [2, 2, 1]
 
 
 def test_breakdown_labels_idle_gaps_by_host_span():

@@ -10,11 +10,14 @@ import pytest
 from pbench_tiny import BENCH_DIR
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
-# the yardstick: the reference, the generator, the comparison, the work
-# count and the span arithmetic
+# the yardstick: the reference, the generator and its kinds, the
+# comparison and each hierarchy's reference, the work count and the span
+# arithmetic
 YARDSTICK = ("pbench/ref/", "pbench/gen.py", "pbench/traffic.py",
              "pbench/judge.py", "pbench/cost.py", "pbench/trace.py",
-             "pbench/spec.py")
+             "pbench/spec.py", "kinds/", "refs/")
+# kind and reference files build on numpy and the harness alone
+FOUND_BY_NAME = ("kinds/", "refs/")
 OLD_FOLDER = "bench" + "marks"
 SOURCES = sorted(p for p in BENCH_DIR.rglob("*.py")
                  if "__pycache__" not in p.parts)
@@ -47,6 +50,21 @@ def test_no_jax_and_no_old_folder(path):
                                   if rel(p).startswith(YARDSTICK)], ids=rel)
 def test_yardstick_imports_nothing_of_the_program(path):
     assert "repro_torch" not in top_level_imports(path)
+
+
+@pytest.mark.parametrize("path", [p for p in SOURCES
+                                  if rel(p).startswith(FOUND_BY_NAME)],
+                         ids=rel)
+def test_kinds_and_references_import_numpy_and_pbench_only(path):
+    assert top_level_imports(path) <= {"numpy", "pbench", "__future__"}
+
+
+def test_kinds_and_references_are_scanned():
+    scanned = {rel(p) for p in SOURCES}
+    assert {"kinds/graph/stencil.py", "kinds/graph/cube_sphere.py",
+            "kinds/machine/gemini-torus.py",
+            "kinds/allocation/hilbert-sfc.py", "refs/flat.py",
+            "refs/node.py"} <= scanned
 
 
 def test_the_run_check_compares_names_whole():
