@@ -17,6 +17,10 @@ one variant, itself.  Job ``i`` of a pool takes variant
 ``i mod len(variants)`` and draws its allocation from its own stream of
 the seed; jobs of one variant share its graph and machine.  The same seed gives the same
 pool, and both the program and the reference get the same arrays.
+
+A job holds at least as many tasks as its allocation holds cores, so
+several tasks may share a core; an allocation with more cores than
+tasks is refused.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ class Job:
     task_coords: np.ndarray   # (n, td) float64
     edges: np.ndarray         # (E, 2) int64, both directions listed
     weights: np.ndarray       # (E,) float64 message volumes
-    alloc: np.ndarray         # (n, ndim) int64 router + core coordinates
+    alloc: np.ndarray         # (cores, ndim) int64, cores <= n
     machine: Machine
     task_weights: np.ndarray | None = None   # (n,) float64, or none
     variant: int = 0          # the configuration's variant it was made of
@@ -73,8 +77,6 @@ def job_pool(config: dict, seed: int, count: int, bench_dir=None
         coords, edges, weights, task_weights = (*graph, None)[:4]
         machine = kind("machine", v["machine"], bench_dir).build(
             v["machine"])
-        if int(v["allocation"]["tasks"]) != len(coords):
-            raise ValueError("the allocation must hold one core a task")
         alloc = kind("allocation", v["allocation"], bench_dir).build(
             v["allocation"], machine)
         made.append((dict(task_coords=coords, edges=edges, weights=weights,
@@ -84,6 +86,11 @@ def job_pool(config: dict, seed: int, count: int, bench_dir=None
     jobs = []
     for i, stream in enumerate(streams):
         shared, alloc = made[i % len(made)]
-        jobs.append(Job(alloc=alloc.draw(np.random.default_rng(stream)),
-                        **shared))
+        cores = alloc.draw(np.random.default_rng(stream))
+        if len(cores) > len(shared["task_coords"]):
+            raise ValueError(
+                f"job {i}'s allocation holds {len(cores)} cores for "
+                f"{len(shared['task_coords'])} tasks: a job may have more "
+                "tasks than cores, never fewer")
+        jobs.append(Job(alloc=cores, **shared))
     return jobs

@@ -5,8 +5,10 @@ here in numpy: the machine-side transforms (core dims dropped, torus
 shift), the rotation candidates, both sides' Multi-Jagged part numbers
 (:mod:`pbench.ref.orderings`), part matching, the WeightedHops and
 Latency(M) scores under dimension-ordered routing, and the first-of-ties
-winner.  It imports nothing of the program; its inputs are the job's
-plain arrays (:class:`pbench.gen.Job`).
+winner.  A job with more tasks than cores is cut into one part a core
+on both sides, as Algorithm 1 does, and several tasks then share a core.
+It imports nothing of the program; its inputs are the job's plain arrays
+(:class:`pbench.gen.Job`).
 """
 
 from __future__ import annotations
@@ -96,14 +98,18 @@ def _unique_rows(perms) -> tuple[np.ndarray, np.ndarray]:
 
 
 def sweep_assignments(tc, pc, cands, *, sfc="FZ", task_weights=None):
-    """Every candidate's task -> processor index, (ncand, ntasks)."""
+    """Every candidate's task -> processor index, (ncand, ntasks).  Both
+    sides are cut into ``pnum`` parts, one processor a part: a part of
+    the tasks holds one task, or several where there are more tasks
+    than processors."""
     (tnum, td), (pnum, pd) = tc.shape, pc.shape
-    if tnum != pnum:
-        raise ValueError("the reference maps one task to a core")
+    if tnum < pnum:
+        raise ValueError("the reference maps no fewer tasks than cores: "
+                         f"{tnum} tasks, {pnum} cores")
     ut, t_sel = _unique_rows([c[0] for c in cands])
     up, p_sel = _unique_rows([c[1] for c in cands])
     kw = dict(longest_dim=True, uneven_prime=False)
-    mu_t = order_points_batched(tc, tnum, sfc, dim_orders=ut,
+    mu_t = order_points_batched(tc, pnum, sfc, dim_orders=ut,
                                 weights=task_weights, **kw)
     mu_p = order_points_batched(pc, pnum, sfc, dim_orders=up, **kw)
     part_to_proc = np.full(mu_p.shape, -1, dtype=np.int64)

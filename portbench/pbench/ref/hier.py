@@ -186,6 +186,9 @@ def map_node(job, *, sfc="FZ", shift=True, rotations=8,
         raise ValueError("the node reference scores WeightedHops only")
     m = job.machine
     tc = np.asarray(job.task_coords, dtype=np.float64)
+    if len(tc) != len(job.alloc):
+        raise ValueError("the node reference maps one task a core: "
+                         f"{len(tc)} tasks, {len(job.alloc)} cores")
     units, core_router = router_view(job.alloc, m.nd)
     nrouters = len(units)
     arity = -(-len(job.alloc) // nrouters)

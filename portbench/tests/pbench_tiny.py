@@ -1,6 +1,7 @@
 """A tiny copy of the benchmark for the CPU tests: every configuration of
 ``BENCHMARK.json`` shrunk, in a temporary root beside the real folder's
-files.
+files; and a copy of the benchmark folder with new files and entries
+beside it, as a later cell would add them.
 
 A configuration gives its own CPU-test sizes under the key ``tiny``: an
 object laid out as the configuration, whose values replace the
@@ -11,7 +12,11 @@ below, by their graph's kind.
 """
 
 import json
+import shutil
+import textwrap
 from pathlib import Path
+
+from pbench.spec import Spec
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 REPO = BENCH_DIR.parent
@@ -58,3 +63,38 @@ def tiny_root(tmp: Path) -> Path:
         (tmp / c["file"]).write_text(json.dumps(tiny_config(cfg)))
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
     return tmp
+
+
+def bench_copy(tmp_path: Path, kinds: dict, configs: dict, mix: dict, *,
+               traffic: str = "new", metrics: dict | None = None) -> Spec:
+    """A copy of the benchmark folder with ``kinds`` ({(part, kind):
+    source}) added, ``configs`` ({name: config}) beside the tiny copies
+    of the real ones, one cell ``<config>.<traffic>`` each on ``mix``,
+    and ``metrics`` ({name: (reader source, per_layer entry)}) whose
+    entries list those cells."""
+    bench_dir = tmp_path / "portbench"
+    shutil.copytree(BENCH_DIR, bench_dir, ignore=shutil.ignore_patterns(
+        "tests", "__pycache__"))
+    for (part, name), text in kinds.items():
+        (bench_dir / "kinds" / part / f"{name}.py").write_text(
+            textwrap.dedent(text))
+    root = tiny_root(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    (bench_dir / "traffic" / f"{traffic}.json").write_text(json.dumps(mix))
+    cells = []
+    for name, cfg in configs.items():
+        (bench_dir / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+        bench["configs"].append({"name": name, "source": "test",
+                                 "file": f"portbench/configs/{name}.json",
+                                 "reduced": [], "why": "test"})
+        cells.append(f"{name}.{traffic}")
+        bench["workloads"].append({"name": cells[-1], "config": name,
+                                   "traffic": traffic, "chips": 1,
+                                   "why": "test"})
+    for name, (text, entry) in (metrics or {}).items():
+        (bench_dir / "metrics" / f"{name}.py").write_text(
+            textwrap.dedent(text))
+        bench["per_layer"].append({"name": name, **entry,
+                                   "workloads": cells})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return Spec(root, bench_dir)

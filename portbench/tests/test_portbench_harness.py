@@ -31,10 +31,13 @@ def first(gen_, n):
 
 @pytest.mark.parametrize("mix", sorted(ALL_MIXES))
 def test_schedule_is_deterministic_per_seed(mix):
-    a = first(tr.schedule(ALL_MIXES[mix], 2 ** 31 + 5), 400)
-    b = first(tr.schedule(ALL_MIXES[mix], 2 ** 31 + 5), 400)
+    m = ALL_MIXES[mix]
+    # enough requests for every job of the pool to be sent new
+    n = max(400, m["pool"] * m["block"])
+    a = first(tr.schedule(m, 2 ** 31 + 5), n)
+    b = first(tr.schedule(m, 2 ** 31 + 5), n)
     assert a == b
-    assert set(a) == set(range(ALL_MIXES[mix]["pool"]))
+    assert set(a) == set(range(m["pool"]))
 
 
 def test_job_pool_is_deterministic_per_seed():
@@ -49,6 +52,14 @@ def test_job_pool_is_deterministic_per_seed():
     for j in a:
         assert len(np.unique(j.alloc, axis=0)) == len(j.alloc)
     assert not np.array_equal(a[0].alloc, a[1].alloc)
+
+
+def test_job_pool_refuses_more_cores_than_tasks():
+    cfg = tiny_config(json.loads(
+        (BENCH_DIR / "configs" / "minighost-xk7.json").read_text()))
+    cfg["allocation"]["tasks"] = 2049
+    with pytest.raises(ValueError, match="2049 cores for 2048 tasks"):
+        gen.job_pool(cfg, 1, 1)
 
 
 @pytest.mark.parametrize("part", ["graph", "machine", "allocation",
@@ -294,21 +305,68 @@ def port_map(job, hierarchy, objective, rotations):
         Allocation(machine, job.alloc))
 
 
+def bgq_job(cores_per_node: int) -> gen.Job:
+    """HOMME's elements at ne = 16 in Cube coordinates (the sphere's
+    points over their largest absolute component) onto every core of a
+    (2, 2, 2, 4, 2) BG/Q torus: 1,536 tasks on 64 nodes."""
+    coords, edges, w = gen.kind("graph", {"kind": "cube_sphere"}).build(
+        {"ne": 16, "volume": 1.0})
+    dims = (2, 2, 2, 4, 2, cores_per_node)
+    alloc = np.stack([g.ravel() for g in np.indices(dims)], axis=1)
+    return gen.Job(coords / np.abs(coords).max(axis=1, keepdims=True),
+                   edges, w, alloc,
+                   engine.Machine(dims, (True,) * 5 + (False,),
+                                  ((2.0,),) * 5))
+
+
+# more tasks than cores: 6 (4 cores a node) or 3 (8) tasks a core
+BGQ = {f"bgq-x{c}-{o}": (c, o) for c in (4, 8) for o in ("latency", "wh")}
+
+
 @pytest.mark.parametrize("config,hierarchy", [
     ("minighost-xk7", "flat"), ("homme-xk7", "flat"),
-    ("minighost-xk7", "node")])
+    ("minighost-xk7", "node")] + [(c, "flat") for c in BGQ])
 def test_reference_agrees_with_the_host_engine(config, hierarchy):
-    cfg = tiny_config(json.loads(
-        (BENCH_DIR / "configs" / f"{config}.json").read_text()))
-    objective = cfg["pipeline"]["objective"]
-    rotations = cfg["pipeline"]["rotations"]
+    if config in BGQ:
+        cores, objective = BGQ[config]
+        jobs, rotations = [bgq_job(cores)], 36
+    else:
+        cfg = tiny_config(json.loads(
+            (BENCH_DIR / "configs" / f"{config}.json").read_text()))
+        objective = cfg["pipeline"]["objective"]
+        rotations = cfg["pipeline"]["rotations"]
+        jobs = gen.job_pool(cfg, 2 ** 32 + 3, 3)
     ref = engine.map_flat if hierarchy == "flat" else hier.map_node
-    for job in gen.job_pool(cfg, 2 ** 32 + 3, 3):
+    for job in jobs:
         want = port_map(job, hierarchy, objective, rotations)
         got = ref(job, objective=objective, rotations=rotations)
         assert np.array_equal(got["task_to_proc"], want.task_to_proc)
         assert got["rotation"] == want.rotation
         assert got["score"] == want.score
+        if config in BGQ:     # every core holds 1536 / cores tasks
+            assert set(np.bincount(got["task_to_proc"])) == {
+                len(job.task_coords) // len(job.alloc)}
+
+
+def test_node_reference_refuses_more_tasks_than_cores():
+    with pytest.raises(ValueError, match="1536 tasks, 256 cores"):
+        hier.map_node(bgq_job(4), rotations=36)
+
+
+def test_compare_counts_tasks_moved_between_shared_cores():
+    ref = {0: {"task_to_proc": np.array([0, 0, 0, 1, 1, 1]),
+               "rotation": ((0, 1, 2), (0, 1, 2)), "score": 3.0}}
+
+    def answer(t2p):
+        return {"job": 0, "task_to_proc": np.array(t2p),
+                "rotation": ((0, 1, 2), (0, 1, 2)), "score": 3.0}
+
+    # one task moved to the other core, then two swapped
+    for t2p, wrong in (([0, 0, 1, 1, 1, 1], 1), ([0, 0, 1, 1, 1, 0], 2),
+                       ([0, 0, 0, 1, 1, 1], 0)):
+        numbers = judge.compare([answer(t2p)], ref)
+        assert numbers["wrong_tasks"] == wrong
+        assert judge.verdict(numbers) == (wrong == 0)
 
 
 def test_latency_routes_like_a_message_walk():

@@ -5,8 +5,6 @@ the CPU, as do per-task weights from a graph kind; and K1's roofline
 sizes each launch by its own request's job."""
 
 import json
-import shutil
-import textwrap
 
 import numpy as np
 import pytest
@@ -16,7 +14,7 @@ from pbench import cost, gen, judge, trace
 from pbench.cell import Run
 from pbench.ref import engine
 from pbench.spec import Spec
-from pbench_tiny import BENCH_DIR, REPO, tiny_config, tiny_root
+from pbench_tiny import BENCH_DIR, REPO, bench_copy, tiny_config
 
 SEED = 2 ** 31 + 2807
 
@@ -90,31 +88,6 @@ BGQ_CONFIG = tiny_config({
 # two distinct jobs alternate past a one-entry LRU: every request misses
 TWO_SIZES = {"pool": 4, "warmup_jobs": 2, "cache_entries": 1, "block": 1,
              "repeat_share": 0.0, "recent": 0, "hierarchy": "flat"}
-
-
-def bench_copy(tmp_path, kinds: dict, configs: dict, mix: dict):
-    """A copy of the benchmark folder with ``kinds`` ({(part, kind):
-    source}) added, ``configs`` ({name: config}) beside the tiny copies
-    of the real ones, one cell ``<config>.new`` each on ``mix``."""
-    bench_dir = tmp_path / "portbench"
-    shutil.copytree(BENCH_DIR, bench_dir, ignore=shutil.ignore_patterns(
-        "tests", "__pycache__"))
-    for (part, name), text in kinds.items():
-        (bench_dir / "kinds" / part / f"{name}.py").write_text(
-            textwrap.dedent(text))
-    root = tiny_root(tmp_path)
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    (bench_dir / "traffic" / "new.json").write_text(json.dumps(mix))
-    for name, cfg in configs.items():
-        (bench_dir / "configs" / f"{name}.json").write_text(json.dumps(cfg))
-        bench["configs"].append({"name": name, "source": "test",
-                                 "file": f"portbench/configs/{name}.json",
-                                 "reduced": [], "why": "test"})
-        bench["workloads"].append({"name": f"{name}.new", "config": name,
-                                   "traffic": "new", "chips": 1,
-                                   "why": "test"})
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    return Spec(root, bench_dir)
 
 
 def counting(monkeypatch, module, name):
@@ -244,3 +217,16 @@ def test_mapscore_roofline_sizes_each_launch_by_its_own_job():
     run = roofline_run([small, large], [0.5, 1.5])
     run.requests.pop()
     assert read(run) is None
+
+
+def test_mapscore_roofline_sizes_a_launch_by_tasks_not_cores():
+    """A job with 24 tasks on 4 cores: K1 scores every task's core, so
+    the launch is sized by the 24 tasks."""
+    job = shaped_job(24, 40, 0)
+    job.alloc = job.alloc[:4]
+    module = Spec(REPO, BENCH_DIR).reader_module("mapscore_roofline")
+    shapes = module.sweep_shapes({"pipeline": {"objective": "wh"}},
+                                 {"hierarchy": "flat"}, job)
+    assert shapes["tasks"] == 24 and shapes["edges"] == 40
+    assert module.read(roofline_run([job], [1.0])) == pytest.approx(
+        100 * least_s(job) / 1.0)

@@ -1,14 +1,13 @@
 """Whole runs of every cell, past the harness's look for a card: on the
 CPU at tiny sizes the program's answers are correct, and the control and
-a planted fault come out not correct.  One run at full size needs the
-card (marked ``chip``)."""
+a planted fault come out not correct (:mod:`percell`, from each cell's
+own lists).  One run at full size needs the card (marked ``chip``)."""
 
-import dataclasses
 import json
 import subprocess
 import sys
 
-import numpy as np
+import percell
 import pytest
 
 from pbench import cell as pcell
@@ -25,47 +24,20 @@ def spec(tmp_path):
     return Spec(tiny_root(tmp_path), BENCH_DIR)
 
 
-def run(spec, workload, seconds=0.3, **kw):
-    return pcell.run_cell(spec, workload, SEED, seconds, False, t_start=0.0,
-                          device="cpu", score_backend="torch", **kw)
-
-
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_program_answers_are_correct(spec, workload):
-    res = run(spec, workload)
-    assert res["correct"], res["checks"]
-    assert res["attempted"] > 0 and res["failed"] == 0
-    e2e = {m["name"] for m in spec.metrics("end_to_end", workload)}
-    assert set(res["metrics"]) == e2e
-    assert all(v["value"] > 0 for v in res["metrics"].values())
+    percell.program_answers_are_correct(spec, workload, SEED)
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_control_is_not_correct(spec, workload):
-    # the count, not the clock, ends the window: the jobs judged are the
-    # same however loaded the host is
-    res = run(spec, workload, seconds=600.0, serve="control", limit=100)
-    assert res["attempted"] == 100
-    assert not res["correct"]
-    assert res["checks"]["wrong_tasks"]["value"] > 0
+    percell.control_is_not_correct(spec, workload, SEED)
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_an_answer_altered_where_it_is_made_is_not_correct(
         spec, workload, monkeypatch):
-    from repro_torch.serve import MappingService
-    compute = MappingService._compute
-
-    def altered(self, request):
-        res = compute(self, request)
-        t2p = np.array(res.task_to_proc, copy=True)
-        t2p[[0, -1]] = t2p[[-1, 0]]            # two tasks swap cores
-        return dataclasses.replace(res, task_to_proc=t2p)
-
-    monkeypatch.setattr(MappingService, "_compute", altered)
-    res = run(spec, workload)
-    assert not res["correct"]
-    assert res["checks"]["wrong_tasks"]["value"] == 2
+    percell.altered_answer_is_not_correct(spec, workload, SEED, monkeypatch)
 
 
 def test_traced_run_reads_the_per_layer_metrics(spec):

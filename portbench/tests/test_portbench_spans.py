@@ -1,21 +1,21 @@
 """The readers of the spans inside the sweep, the service and the
 hierarchy: their arithmetic on synthetic spans (device intervals and
 profiler operations inside and outside them), and a traced CPU run of
-each kind of cell, which reports the host-clock metrics and leaves out
+each cell, which reports the span metrics the cell lists and leaves out
 the two device ones (no card, so no device intervals)."""
 
 import json
 
+import percell
 import pytest
 
-from pbench import cell as pcell
 from pbench import trace
 from pbench.cell import Run
 from pbench.spec import Spec
 from pbench_tiny import BENCH_DIR, REPO, tiny_root
 
 SEED = 2 ** 31 + 26
-DEVICE_METRICS = {"sweep.device_ms", "sweep.partition_ops"}
+DEVICE_METRICS = percell.DEVICE_METRICS
 WORKLOADS = [w["name"] for w in
              json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]]
 
@@ -98,18 +98,5 @@ def test_device_readers_arm_nothing_on_the_cpu():
 
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_traced_run_reads_the_span_metrics(tmp_path, workload):
-    spec = Spec(tiny_root(tmp_path), BENCH_DIR)
-    res = pcell.run_cell(spec, workload, SEED, 0.3, True, t_start=0.0,
-                         device="cpu", score_backend="torch")
-    assert res["correct"]
-    m = res["metrics"]
-    assert {"service.signature_ms", "sweep.host_ms",
-            "sweep.wait_ms"} <= set(m)
-    assert not DEVICE_METRICS & set(m)
-    if workload.endswith(".node"):
-        assert 0 < m["hier.assign_ms"]["value"] < m["hier.host_ms"]["value"]
-    else:
-        assert "hier.assign_ms" not in m
-    # the sweep's host steps lie inside pipeline.fused
-    assert m["sweep.host_ms"]["value"] + m["sweep.wait_ms"]["value"] <= \
-        m["sweep.fused_ms"]["value"]
+    percell.span_metrics_are_read(Spec(tiny_root(tmp_path), BENCH_DIR),
+                                  workload, SEED)
