@@ -60,13 +60,20 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    launched once a pipeline evaluator call plus the fused pass's own,
    segscan (the top sweep is weighted by cluster sizes) at least once,
    mjfinish once a sweep that hands off (two a node request: the
-   coarsening and the router side); and equal, bit for bit, to the all-host path (numpy partitioner and
-   scorer, ``fused="off"``) for WeightedHops and to the staged path with
+   coarsening and the router side), coredeal once an expansion to cores
+   or units, every span's ``path`` ``"cuda"`` (one a node request, two a
+   depth-3 one); and equal, bit for bit, to the all-host path (numpy
+   partitioner and scorer, ``fused="off"``) for WeightedHops and to the staged path with
    the same K1 scorer for the latency objective.  Before them: the fused
    refinement against the host pass on the card for tied and zero
    contributions, and K1 on one stack whole, in halves and with the host
-   evaluator's group bound, bit for bit.  Times sit beside the flat
-   request of the same scenario from ``serve``.
+   evaluator's group bound, bit for bit; and coredeal against its plain
+   version and the host ``assign_cores``, bit for bit, at the node cell's
+   shape (131,072 tasks, 4,096 routers x 32 cores; timed beside the host
+   function, its three sorts and its byte bound) and on small uneven,
+   spill, tied, 1-, 7- and 20-dimensional and NaN cases; an out-of-range
+   cluster or router id raises.  Times
+   sit beside the flat request of the same scenario from ``serve``.
    ``resilience`` — the default-config service answers
    ``minighost-xk7_sparse-flat-wh`` at ``--scale`` tasks under injected
    faults (``faults.isolated()``, a fresh service over cleared pipelines a
@@ -3085,12 +3092,140 @@ def k1_proposal_case(name, scale, rotations) -> dict:
                         coarse.weights, stack)
 
 
+def coredeal_inputs(case: str, rng):
+    """(labels, c2r, core_router, coords, nrouters) of a coredeal case:
+    ``node`` the node cell's shape, a (64, 64, 32) grid in 4,096 boxes of
+    32 tasks on 4,096 routers of 32 cores; the rest small: a trimmed
+    allocation, a spill (more tasks than cores, clusters of uneven
+    sizes), tied points, 1, 7 and 20 coordinates (20: a 60-bit Hilbert
+    index), a NaN coordinate."""
+    import numpy as np
+    if case == "node":
+        g = np.indices((64, 64, 32)).reshape(3, -1).T.astype(np.float64)
+        labels = ((g[:, 0] // 4) * 256 + (g[:, 1] // 4) * 16
+                  + g[:, 2] // 2).astype(np.int64)
+        return (labels, rng.permutation(4096),
+                np.repeat(np.arange(4096), 32), g, 4096)
+    nrouters = 64
+    core_router = np.repeat(np.arange(nrouters), 8)
+    if case in ("uneven", "spill"):
+        core_router = np.sort(core_router[rng.random(len(core_router))
+                                          < 0.8])
+    n = len(core_router) + (37 if case == "spill" else 0)
+    d = {"d1": 1, "d7": 7, "d20": 20}.get(case, 3)
+    coords = rng.random((n, d)) * 100
+    if case == "ties":
+        coords = rng.integers(0, 3, (n, d)).astype(np.float64)
+    if case == "nan":
+        coords[5, 1] = np.nan
+    nclusters = 80 if case == "spill" else nrouters
+    labels = rng.integers(0, nclusters, n)
+    return labels, rng.integers(0, nrouters, nclusters), core_router, \
+        coords, nrouters
+
+
+COREDEAL_CASES = ("node", "uneven", "spill", "ties", "d1", "d7", "d20",
+                  "nan")
+
+
+def coredeal_cases() -> list:
+    """coredeal against its plain version on the card and against the
+    host numpy ``assign_cores``, bit for bit, on every case of
+    :func:`coredeal_inputs` (seed 30), a rerun bit for bit, one wrapper
+    launch a call, and a cluster or router id out of range raising
+    ``ValueError`` with the card left usable; at the node cell's shape
+    the wrapper, its three sorts and the plain version by CUDA events,
+    the host function and the device ``assign_cores`` (uploads and the
+    copy back) by the host clock, beside the byte bound."""
+    import numpy as np
+    import torch
+    from repro_torch.core.orderings import hilbert_bits
+    from repro_torch.hier import assign_cores
+    from repro_torch.kernels.coredeal import ops, ref
+    out = []
+    for case in COREDEAL_CASES:
+        rng = np.random.default_rng(30)
+        labels, c2r, core_router, coords, nrouters = coredeal_inputs(case,
+                                                                     rng)
+        with np.errstate(invalid="ignore"):
+            want = assign_cores(labels, c2r, core_router, coords, nrouters)
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in (labels, c2r, core_router, coords)]
+        n0 = ops.launch_count
+        got = ops.coredeal(*args, nrouters=nrouters)
+        again = ops.coredeal(*args, nrouters=nrouters)
+        torch.cuda.synchronize()
+        check(ops.launch_count == n0 + 2, f"coredeal/{case}: not one launch "
+              f"a call ({ops.launch_count - n0} for 2)")
+        plain = ref.coredeal_ref(*args, nrouters=nrouters)
+        torch.cuda.synchronize()
+        n, d = coords.shape
+        check(torch.equal(got, again), f"coredeal/{case}: a rerun differs")
+        ndiff = int((got != plain).sum())
+        check(ndiff == 0, f"coredeal/{case}: {ndiff} cores differ from the "
+              "plain version")
+        ndiff = int((got.cpu().numpy() != want).sum())
+        check(ndiff == 0, f"coredeal/{case}: {ndiff} cores differ from the "
+              "host assign_cores")
+        # tasks beyond their router's budget of q a core: the spill pass
+        q = -(-n // len(core_router))
+        over = (np.bincount(c2r[labels], minlength=nrouters)
+                - q * np.bincount(core_router, minlength=nrouters))
+        rec = {"case": case, "n": int(n), "d": int(d),
+               "clusters": int(len(c2r)), "routers": int(nrouters),
+               "cores": int(len(core_router)), "bits": hilbert_bits(n, d),
+               "spilled": int(np.maximum(over, 0).sum())}
+        check((rec["spilled"] > 0) == (case != "node"),
+              f"coredeal/{case}: {rec['spilled']} tasks spilled")
+        if case == "node":
+            def host_ms(fn, reps):
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return statistics.median(times)
+
+            h = ref.hilbert_keys(args[3], rec["bits"])
+            r = args[1][args[0]]
+            nbytes = n * (8 * d + 24) + 8 * len(c2r)
+            rec.update(
+                ms=cuda_ms(lambda: ops.coredeal(*args, nrouters=nrouters),
+                           20),
+                sort_ms=cuda_ms(lambda: ref.sort_three(h, args[0], r), 20),
+                plain_ms=cuda_ms(lambda: ref.coredeal_ref(
+                    *args, nrouters=nrouters), 5),
+                host_ms=host_ms(lambda: assign_cores(
+                    labels, c2r, core_router, coords, nrouters), 5),
+                device_assign_ms=host_ms(lambda: assign_cores(
+                    labels, c2r, core_router, coords, nrouters,
+                    device="cuda"), 20),
+                bytes=nbytes, bound_ms=nbytes / 3.35e12 * 1e3,
+                bound_by="bytes")
+        if case == "uneven":
+            # ids out of range: counted on the card, raised after the read
+            lab, c2r_t = args[0], args[1]
+            for what, bad in (("cluster id", [lab + len(c2r), c2r_t]),
+                              ("router id", [lab, c2r_t + nrouters])):
+                try:
+                    ops.coredeal(*bad, *args[2:], nrouters=nrouters)
+                    raised = ""
+                except ValueError as e:
+                    raised = str(e)
+                check(what in raised, f"coredeal/{case}: a {what} out of "
+                      f"range gave {raised or 'an answer'}")
+            check(torch.equal(ops.coredeal(*args, nrouters=nrouters), got),
+                  f"coredeal/{case}: differs after the refused calls")
+        out.append(rec)
+    return out
+
+
 def coarsen_split(req) -> dict:
     """Where a node request's host-side time goes, by part, at full size
     (median of 3, host clock; every device call synchronised): the
     coarsening's cluster labels (the device partitioner), the whole
     ``aggregate_tasks`` (labels plus the host contractions), and the
-    expansion to cores (``assign_cores``, host)."""
+    expansion to cores (``assign_cores``, on the host and on the card)."""
     import numpy as np
     import torch
     from repro_torch.core.orderings import order_points
@@ -3119,8 +3254,11 @@ def coarsen_split(req) -> dict:
     c2r = np.arange(n)
     expand_s, _ = timed(lambda: assign_cores(agg.labels, c2r, core_router,
                                              tc, n))
+    device_s, _ = timed(lambda: assign_cores(agg.labels, c2r, core_router,
+                                             tc, n, device="cuda"))
     return {"labels_s": labels_s, "aggregate_s": agg_s,
             "contraction_s": agg_s - labels_s, "assign_cores_s": expand_s,
+            "assign_cores_device_s": device_s,
             "coarse_edges": int(len(agg.coarse.edges))}
 
 
@@ -3130,7 +3268,7 @@ def hier_spans(trace_id) -> dict:
     (``score.hopper`` spans) of the host passes under ``pipeline.refine``
     / ``pipeline.polish`` (the numpy scorer reads nothing back); and
     the K1 launches the pipeline's evaluator made (every ``score.hopper``
-    span)."""
+    span); the ``path`` of every expansion (``hier.assign_cores``)."""
     from repro_torch import obs
     spans = obs.finished(trace_id)
     by_id = {s.span_id: s for s in spans}
@@ -3149,7 +3287,9 @@ def hier_spans(trace_id) -> dict:
     return {"fused_reads": (fused[0].attrs.get("refine_host_reads", 0)
                             if fused else 0),
             "host_reads": host_reads,
-            "evaluator_k1": sum(1 for s in spans if s.name == "score.hopper")}
+            "evaluator_k1": sum(1 for s in spans if s.name == "score.hopper"),
+            "assign_paths": [s.attrs.get("path") for s in spans
+                             if s.name == "hier.assign_cores"]}
 
 
 def finish_levels(trace_id) -> list:
@@ -3275,6 +3415,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     import dataclasses
     import torch
     from repro_torch.core.signature import mapping_signature
+    from repro_torch.kernels.coredeal import ops as cd_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import ops
     from repro_torch.kernels.mjfinish import ops as mj_ops
@@ -3284,6 +3425,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     from repro_torch.serve import MappingService, get_scenario
 
     traps = refine_trap_cases()
+    coredeal = coredeal_cases()
     k1_proposals = k1_proposal_case(HIER_SCENARIOS[1], scale, rotations)
     k1_split = k1_split_case(problems[SCENARIOS[0].rsplit("-", 1)[0]])
     flat = {r["scenario"]: r for r in serve["requests"]} if serve else {}
@@ -3292,11 +3434,11 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
             for n in HIER_SCENARIOS]
     # the main path's only
     ops.launch_count = seg_ops.launch_count = mj_ops.launch_count = 0
-    fa_ops.launch_count = ssd_ops.launch_count = 0
+    fa_ops.launch_count = ssd_ops.launch_count = cd_ops.launch_count = 0
     served = []
     for name, req in zip(HIER_SCENARIOS, reqs):
         k1, seg = ops.launch_count, seg_ops.launch_count
-        mj = mj_ops.launch_count
+        mj, cd = mj_ops.launch_count, cd_ops.launch_count
         resp = svc.map(req)
         torch.cuda.synchronize()
         check(resp.status == "cold", f"{name}: first answer {resp.status}")
@@ -3315,6 +3457,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
                "k1_launches": ops.launch_count - k1,
                "segscan_launches": seg_ops.launch_count - seg,
                "mjfinish_launches": mj_ops.launch_count - mj,
+               "coredeal_launches": cd_ops.launch_count - cd,
                "finish_from": finish_levels(res.stats["trace_id"]),
                **hier_answer(name, req, res), **res.stats["timings"],
                **hier_spans(res.stats["trace_id"])}
@@ -3347,10 +3490,19 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
               and (handed == 2 or "-node-" not in name),
               f"{name}: {rec['mjfinish_launches']} mjfinish launches, "
               f"finish_from {rec['finish_from']}")
+        # coredeal: one launch an expansion (one a node request, two a
+        # depth-3 one), every one on the card
+        paths = rec["assign_paths"]
+        check(rec["coredeal_launches"] == len(paths)
+              == req.config.hierarchy.depth - 1
+              and set(paths) == {"cuda"},
+              f"{name}: {rec['coredeal_launches']} coredeal launches, "
+              f"expansion paths {paths}")
         served.append(rec)
     launches = ops.launch_count
     seg_launches = seg_ops.launch_count
     mj_launches = mj_ops.launch_count
+    cd_launches = cd_ops.launch_count
     check(fa_ops.launch_count == ssd_ops.launch_count == 0,
           "the hierarchical path launched a model kernel")
     split = coarsen_split(reqs[0])
@@ -3393,7 +3545,9 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     check_service(svc, "hier")
     return {"requests": served, "kernel_launches": launches,
             "segscan_launches": seg_launches,
-            "mjfinish_launches": mj_launches, "refine_traps": traps,
+            "mjfinish_launches": mj_launches,
+            "coredeal_launches": cd_launches, "coredeal": coredeal,
+            "refine_traps": traps,
             "k1_split": k1_split, "k1_proposals": k1_proposals,
             "node_split": split}
 
@@ -3867,6 +4021,7 @@ def main(argv=None) -> int:
               "runs on a GPU", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.coredeal import kernel as cd_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mapscore import kernel as ms_kernel
     from repro_torch.kernels.mjfinish import kernel as mj_kernel
@@ -3880,6 +4035,7 @@ def main(argv=None) -> int:
     ssd_kernel._launch_fn()
     seg_kernel._launch_fn()
     mj_kernel._launch_fn()
+    cd_kernel._launch_fns()
     info = _build.build_info()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -3956,6 +4112,7 @@ def main(argv=None) -> int:
     seg_lead = seg[0]  # the first level's layout: the longest walks
     mjf = mapping["partition"]["mjfinish"]
     mj_lead = mjf[0]   # minighost's task side: the cold cells' shape
+    cd_lead = mapping["hier"]["coredeal"][0]  # the node cell's shape
     kernels = [{
         "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
@@ -4046,6 +4203,22 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": {k: mj_lead[k] for k in ("case", "n", "candidates",
                                           "finish_from", "segments")},
+        "tolerance": "exact",
+    }, {
+        "name": "coredeal", "route": "cuda", "design": cd_kernel.DESIGN,
+        "source": "src/repro_torch/kernels/coredeal/csrc/coredeal.cu",
+        "replaces": "src/repro/hier/refine.py:assign_cores",
+        "note": "no Pallas counterpart: the host hilbert_key + lexsort + "
+                "deal of the hierarchy's expansion to cores",
+        "launches": mapping["hier"]["coredeal_launches"],
+        "launches_by_path": {"hier": mapping["hier"]["coredeal_launches"]},
+        "max_abs_err": 0,
+        "ms": cd_lead["ms"], "plain_ms": cd_lead["plain_ms"],
+        "bound_ms": cd_lead["bound_ms"], "bound_by": cd_lead["bound_by"],
+        "library_ms": None, "sort_ms": cd_lead["sort_ms"],
+        "host_ms": cd_lead["host_ms"],
+        "shape": {k: cd_lead[k] for k in ("case", "n", "d", "clusters",
+                                          "routers", "cores")},
         "tolerance": "exact",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

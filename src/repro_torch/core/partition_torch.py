@@ -457,6 +457,52 @@ def _note_finish(l0: int) -> None:
 # the Hilbert sweep
 # ---------------------------------------------------------------------------
 
+def hilbert_quantise(cols: torch.Tensor, bits: int) -> torch.Tensor:
+    """(d, n) coordinates onto the 2^bits-per-side grid, (d, n) int64, per
+    dimension (host rule: ``orderings._hilbert_quantise``)."""
+    side = 1 << bits
+    lo = cols.amin(dim=1)
+    span = cols.amax(dim=1) - lo
+    span = torch.where(span > 0, span, torch.ones_like(span))
+    q = ((cols - lo[:, None]) / span[:, None] * (side - 1)).round()
+    return q.to(_I64).clamp(0, side - 1)
+
+
+def hilbert_transform(X: list, bits: int) -> torch.Tensor:
+    """The Hilbert index of quantised points given as ``d`` int64 tensors
+    of one shape, one a dimension (Skilling's transpose algorithm, host
+    rule: ``orderings.hilbert_index``, op for op).  Rebinds the entries of
+    ``X``; writes into no tensor."""
+    d = len(X)
+    if d == 1:
+        return X[0]
+    M = 1 << (bits - 1)
+    Q = M
+    while Q > 1:  # inverse undo excess work
+        P = Q - 1
+        for i in range(d):
+            has = (X[i] & Q) != 0
+            X[0] = torch.where(has, X[0] ^ P, X[0])
+            t = torch.where(has, 0, (X[0] ^ X[i]) & P)
+            X[0] = X[0] ^ t
+            X[i] = X[i] ^ t
+        Q >>= 1
+    for i in range(1, d):  # Gray encode
+        X[i] = X[i] ^ X[i - 1]
+    t = torch.zeros_like(X[0])
+    Q = M
+    while Q > 1:
+        t = torch.where((X[d - 1] & Q) != 0, t ^ (Q - 1), t)
+        Q >>= 1
+    for i in range(d):
+        X[i] = X[i] ^ t
+    h = torch.zeros_like(X[0])
+    for i in range(d):  # interleave: bit b of dim i -> b*d + (d-1-i)
+        for b in range(bits):
+            h = h | (((X[i] >> b) & 1) << (b * d + (d - 1 - i)))
+    return h
+
+
 def _hilbert_sweep(inp: SweepInputs) -> torch.Tensor:
     """Batched Hilbert numbering (Skilling's transpose algorithm,
     mirroring ``orderings.hilbert_index`` / ``orderings._hilbert_split``
@@ -468,44 +514,10 @@ def _hilbert_sweep(inp: SweepInputs) -> torch.Tensor:
     d = inp.cols.shape[0]
     dev = inp.cols.device
     bits = hilbert_bits(n, d)
-    side = 1 << bits
-    cols = inp.cols
-    # --- quantise once (host rule: orderings._hilbert_quantise) --------
-    lo = cols.amin(dim=1)
-    span = cols.amax(dim=1) - lo
-    span = torch.where(span > 0, span, torch.ones_like(span))
-    q = ((cols - lo[:, None]) / span[:, None] * (side - 1)).round()
-    q = q.to(_I64).clamp(0, side - 1)                      # (d, n)
+    q = hilbert_quantise(inp.cols, bits)                  # (d, n)
     # --- fold the dim-order: X[i] = q[sdo[b, i]] per candidate ---------
     X = [q.index_select(0, inp.sdo[:, i]) for i in range(d)]   # (nb, n)
-    # --- Skilling transpose (host rule: orderings.hilbert_index) -------
-    if d == 1:
-        h = X[0]
-    else:
-        M = 1 << (bits - 1)
-        Q = M
-        while Q > 1:  # inverse undo excess work
-            P = Q - 1
-            for i in range(d):
-                has = (X[i] & Q) != 0
-                X[0] = torch.where(has, X[0] ^ P, X[0])
-                t = torch.where(has, 0, (X[0] ^ X[i]) & P)
-                X[0] = X[0] ^ t
-                X[i] = X[i] ^ t
-            Q >>= 1
-        for i in range(1, d):  # Gray encode
-            X[i] = X[i] ^ X[i - 1]
-        t = torch.zeros((nb, n), dtype=_I64, device=dev)
-        Q = M
-        while Q > 1:
-            t = torch.where((X[d - 1] & Q) != 0, t ^ (Q - 1), t)
-            Q >>= 1
-        for i in range(d):
-            X[i] = X[i] ^ t
-        h = torch.zeros((nb, n), dtype=_I64, device=dev)
-        for i in range(d):  # interleave: bit b of dim i -> b*d + (d-1-i)
-            for b in range(bits):
-                h = h | (((X[i] >> b) & 1) << (b * d + (d - 1 - i)))
+    h = hilbert_transform(X, bits)
     # --- stable sort per candidate + split (host rule: _hilbert_split) -
     order = torch.sort(h, dim=1, stable=True).indices     # (nb, n)
     rank = torch.arange(n, dtype=_I64, device=dev)

@@ -32,13 +32,14 @@ mapping):
 
 The coarsening labels come from the pipeline's partition engine (the
 device partitioner by default) and the contractions stay on the host
-(:mod:`repro_torch.hier.aggregate`); the refinement passes score with
-the pipeline's ``score_backend`` on its ``device`` (the mapscore kernel
-by default) except for sum-separable objectives, which the numpy
-evaluator scores exactly.  Every decision is the reference's: the
-same calls, arguments and order, so the answers equal the reference's
-bit for bit (tests/test_torch_hier.py).  Because every
-task inherits its node's router coordinates, the level-1 refined score
+(:mod:`repro_torch.hier.aggregate`); every expansion runs on the
+pipeline's ``device`` (the ``coredeal`` kernels on a card); the
+refinement passes score with the pipeline's ``score_backend`` on its
+``device`` (the mapscore kernel by default) except for sum-separable
+objectives, which the numpy evaluator scores exactly.  Every decision
+is the reference's: the same calls, arguments and order, so the answers
+equal the reference's bit for bit (tests/test_torch_hier.py).  Because
+every task inherits its node's router coordinates, the level-1 refined score
 equals the fine mapping's volume-weighted metrics exactly, whatever
 the depth.
 """
@@ -53,8 +54,8 @@ from repro_torch.core.mapping import MappingResult
 from repro_torch.core.orderings import order_points
 
 from .aggregate import aggregate_tasks
-from .refine import (assign_cores, hilbert_key, polish_groups, refine_qap,
-                     refine_swaps)
+from .refine import (assign_cores, assign_path, hilbert_key, polish_groups,
+                     refine_qap, refine_swaps)
 from .spec import DEFAULT_GROUP_ARITY
 
 
@@ -334,16 +335,19 @@ def map_hierarchical(
                     sub = np.lexsort((hilbert_key(units), m_member[i]))
                     with obs.span("hier.assign_cores",
                                   tasks=len(aggs[i].labels),
-                                  units=len(m_coords[i])):
+                                  units=len(m_coords[i]),
+                                  path=assign_path(cfg.device)):
                         cur = sub[assign_cores(
                             aggs[i].labels, cur, m_member[i][sub],
-                            child, len(m_coords[i]))]
+                            child, len(m_coords[i]), device=cfg.device)]
                 else:
                     with obs.span("hier.assign_cores",
                                   tasks=len(aggs[0].labels),
-                                  units=int(nrouters)):
+                                  units=int(nrouters),
+                                  path=assign_path(cfg.device)):
                         t2p = assign_cores(aggs[0].labels, cur,
-                                           core_router, tc, nrouters)
+                                           core_router, tc, nrouters,
+                                           device=cfg.device)
             timings["refine_s"] += sp.duration_s
             level_stats[i]["refine_s"] = sp.duration_s
             level_stats[i]["refine_accepted"] = \

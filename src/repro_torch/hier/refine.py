@@ -53,15 +53,24 @@ things remain:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.metrics import (STACK_BYTE_BUDGET, get_evaluator,
                                       pairwise_hops)
 from repro_torch.core.metrics import lex_less as _lex_less
 from repro_torch.core.orderings import hilbert_key
+from repro_torch.kernels.coredeal import coredeal
 
 # gain quantization of refine_qap's bucket-ordered accept: more buckets
 # = closer to strict best-first, fewer = more id-deterministic batching
 _QAP_BUCKETS = 32
+
+
+def assign_path(device) -> str:
+    """The path :func:`assign_cores` takes for ``device``: ``"host"``
+    (numpy), ``"cuda"`` (the coredeal kernels) or ``"cpu"`` (their
+    plain-torch version)."""
+    return "host" if device is None else torch.device(device).type
 
 
 def assign_cores(
@@ -70,6 +79,7 @@ def assign_cores(
     core_router: np.ndarray,
     task_coords: np.ndarray,
     nrouters: int,
+    device=None,
 ) -> np.ndarray:
     """Expand cluster -> node into task -> core (intra-node SFC order).
 
@@ -89,7 +99,24 @@ def assign_cores(
     weight-balanced — spill onto the remaining free core slots in
     allocation (SFC) order.  In particular ``n == ncores`` is always a
     BIJECTION, matching the flat pipeline's tnum == pnum contract.
+
+    A device runs the same arithmetic there, bit for bit
+    (:mod:`repro_torch.kernels.coredeal`: the kernels on a CUDA device, its
+    plain-torch version on ``"cpu"``), from the four inputs uploaded, and
+    copies the answer back; :func:`assign_path` names the path taken.
+    ``device=None`` runs the numpy body below, kept as the host reference
+    the device paths are held to (the pipeline always passes a device).
     """
+    if device is not None:
+        dev = torch.device(device)
+
+        def up(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+                dev)
+
+        return coredeal(up(labels, np.int64), up(cluster_to_router, np.int64),
+                        up(core_router, np.int64), up(task_coords, np.float64),
+                        nrouters=nrouters).cpu().numpy()
     labels = np.asarray(labels)
     n = len(labels)
     ncores = len(core_router)

@@ -6,7 +6,9 @@ refinement half of ``mapping/fused.py``) against the reference
 Held bit for bit: ``aggregate_tasks`` (labels, sizes, weights, centroids,
 coarse edges and volumes, intra volume) with both partition engines,
 ``router_view``, ``group_units``, ``assign_cores`` (uneven router core
-counts and the spill), ``refine_swaps`` / ``refine_qap`` /
+counts, the spill, tied points, the node cell's shape reduced; on the
+host and through the coredeal kernel's plain version, up to 20
+dimensions), ``refine_swaps`` / ``refine_qap`` /
 ``polish_groups`` from scrambled starts with the numpy evaluator on both
 sides, and ``MappingPipeline.map`` for node, depth-3, depth-4 and
 ``from_machine`` specs: the port's fused path (device partitioner on the
@@ -37,6 +39,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import repro.hier as RH
 import repro.serve as RSV
@@ -44,7 +47,8 @@ from repro.core import (bgq, block_allocation, gemini_xk7, sfc_allocation,
                         stencil_graph, tpu_v5e_pod)
 from repro.mapping.pipeline import MappingPipeline as RPipeline
 from repro.mapping.pipeline import PipelineConfig as RConfig
-from repro_torch import compat, hier
+from repro_torch import compat, hier, obs
+from repro_torch.kernels.coredeal import coredeal
 from repro_torch.mapping import MappingPipeline
 from repro_torch.mapping.fused import FusedSweep, _Refinement
 from repro_torch.serve import MappingService
@@ -133,31 +137,106 @@ def test_router_view_and_group_units_match_reference(name, backend):
             assert np.array_equal(gm, wm)
 
 
-@pytest.mark.parametrize("case", ["even", "uneven", "spill"])
-def test_assign_cores_matches_reference(case):
-    rng = np.random.default_rng({"even": 0, "uneven": 1, "spill": 2}[case])
+ASSIGN_CASES = ("even", "uneven", "spill", "ties", "wide", "node")
+
+
+def _assign_case(case):
+    """(labels, c2r, core_router, coords, nrouters) of an assign_cores
+    case: ``ties`` many tasks on few points (lexsort's stability);
+    ``wide`` 20-dimensional coordinates, a Hilbert index of 60 bits (3 a
+    dimension); ``node`` the
+    node cell's shape reduced: a (16, 16, 8) grid in boxes of 32 on
+    routers of 32 cores."""
+    rng = np.random.default_rng(ASSIGN_CASES.index(case))
     nrouters, cores = 16, 4
+    if case == "node":
+        g = np.indices((16, 16, 8)).reshape(3, -1).T.astype(np.float64)
+        labels = ((g[:, 0] // 4) * 16 + (g[:, 1] // 4) * 4
+                  + g[:, 2] // 2).astype(np.int64)
+        nrouters = 64
+        core_router = np.repeat(np.arange(nrouters), 32)
+        return labels, rng.permutation(nrouters), core_router, g, nrouters
     core_router = np.repeat(np.arange(nrouters), cores)
-    if case != "even":
+    if case in ("uneven", "spill"):
         # a trimmed allocation: some routers lose cores
         core_router = core_router[rng.random(len(core_router)) < 0.8]
         core_router = np.sort(core_router)
     ncores = len(core_router)
     n = ncores if case != "spill" else ncores + 7
-    coords = rng.random((n, 3)) * 8
+    d = 20 if case == "wide" else 3
+    coords = rng.random((n, d)) * 8
+    if case == "ties":
+        coords = rng.integers(0, 3, (n, d)).astype(np.float64)
     if case == "spill":
         # weight-balanced clusters of uneven sizes
         labels = rng.integers(0, nrouters, n)
     else:
         labels = np.repeat(np.arange(nrouters), -(-n // nrouters))[:n]
         labels = rng.permutation(labels)
-    c2r = rng.permutation(nrouters)
+    return labels, rng.permutation(nrouters), core_router, coords, nrouters
+
+
+@pytest.mark.parametrize(
+    "case,device",
+    [pytest.param(c, None, id=c) for c in ASSIGN_CASES]
+    + [pytest.param(c, "cpu", id=f"{c}-on-cpu") for c in ASSIGN_CASES])
+def test_assign_cores_matches_reference(case, device):
+    """The host numpy expansion (``device=None``) and the device one
+    (``"cpu"``: the coredeal kernel's plain-torch version) against the
+    reference."""
+    labels, c2r, core_router, coords, nrouters = _assign_case(case)
+    n, ncores = len(labels), len(core_router)
     want = RH.assign_cores(labels, c2r, core_router, coords, nrouters)
-    got = hier.assign_cores(labels, c2r, core_router, coords, nrouters)
+    got = hier.assign_cores(labels, c2r, core_router, coords, nrouters,
+                            device=device)
+    assert got.dtype == np.int64
     assert np.array_equal(got, want)
     if n == ncores:
         assert np.array_equal(np.sort(got), np.arange(ncores))
     assert np.bincount(got, minlength=ncores).max() <= -(-n // ncores)
+    if case == "node":
+        # each router's 32 tasks (one cluster) fill its 32 cores
+        assert np.array_equal(core_router[got], c2r[labels])
+    assert hier.refine.assign_path(device) == ("host" if device is None
+                                               else "cpu")
+
+
+def test_coredeal_wrapper_checks():
+    labels, c2r, core_router, coords, nrouters = _assign_case("even")
+    args = dict(labels=torch.from_numpy(labels),
+                cluster_to_router=torch.from_numpy(c2r),
+                core_router=torch.from_numpy(core_router),
+                coords=torch.from_numpy(coords))
+
+    def call(nr=nrouters, **over):
+        return coredeal(**{**args, **over}, nrouters=nr)
+
+    t2p = call()
+    assert np.array_equal(
+        t2p.numpy(), RH.assign_cores(labels, c2r, core_router, coords,
+                                     nrouters))
+    with pytest.raises(TypeError, match="float64"):
+        call(coords=args["coords"].float())
+    with pytest.raises(TypeError, match="int64"):
+        call(labels=args["labels"].int())
+    with pytest.raises(ValueError, match="entries for"):
+        call(labels=args["labels"][:-1])
+    with pytest.raises(ValueError, match="1 to 62 dimensions"):
+        call(coords=torch.zeros((len(labels), 63), dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(coords=args["coords"].T.contiguous().T)
+    with pytest.raises(ValueError, match="lies on"):
+        call(core_router=args["core_router"].to("meta"))
+    with pytest.raises(ValueError, match="cluster id"):
+        call(labels=args["labels"] + len(c2r))
+    with pytest.raises(ValueError, match="router id"):
+        call(nr=nrouters - 1)
+    with pytest.raises(ValueError, match="router id"):
+        call(cluster_to_router=args["cluster_to_router"] - 1)
+    with pytest.raises(ValueError, match="one cluster and one core"):
+        call(core_router=args["core_router"][:0])
+    empty = call(labels=args["labels"][:0], coords=args["coords"][:0])
+    assert empty.shape == (0,) and empty.dtype == torch.int64
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +554,6 @@ def test_lognormal_volumes_differ_in_the_last_bit_on_the_reference():
 
 
 def test_map_spans_and_fused_refinement_reads():
-    from repro_torch import obs
     g, alloc, rcfg, _ = _scenario("minighost-xk7_sparse-node-wh")
     pipe = MappingPipeline(_port_config(rcfg))
     assert isinstance(pipe._fused, FusedSweep)
@@ -490,6 +568,8 @@ def test_map_spans_and_fused_refinement_reads():
     assert attrs["refine_host_reads"] == \
         min(res.stats["refine_rounds_run"] + 1, rounds) + 1
     assert spans["pipeline.map"].attrs["device"] == "cpu"
+    # the expansion to cores ran on the pipeline's device
+    assert spans["hier.assign_cores"].attrs["path"] == "cpu"
 
 
 @pytest.mark.parametrize("hierarchy", ["node", "depth3"])

@@ -308,12 +308,16 @@ def test_kernel_modules_import_without_toolchain():
                  "repro_torch.kernels.mjfinish",
                  "repro_torch.kernels.mjfinish.kernel",
                  "repro_torch.kernels.mjfinish.ops",
-                 "repro_torch.kernels.mjfinish.ref"):
+                 "repro_torch.kernels.mjfinish.ref",
+                 "repro_torch.kernels.coredeal",
+                 "repro_torch.kernels.coredeal.kernel",
+                 "repro_torch.kernels.coredeal.ops",
+                 "repro_torch.kernels.coredeal.ref"):
         importlib.import_module(name)
     from repro_torch.kernels import _build
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["flash_attention.cu", "mapscore.cu", "mjfinish.cu",
-                    "segscan.cu", "ssd.cu"]
+    assert srcs == ["coredeal.cu", "flash_attention.cu", "mapscore.cu",
+                    "mjfinish.cu", "segscan.cu", "ssd.cu"]
     assert _build.build_info() == {} or "path" in _build.build_info()
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(_build.KernelBuildFailure, match="nvcc not found"):

@@ -72,6 +72,7 @@ def test_node_request_opens_the_hierarchy_spans():
     clusters = spans["pipeline.coarsen"].attrs["nclusters"]
     assert spans["hier.contract"].attrs["clusters"] == clusters
     assert spans["hier.assign_cores"].attrs["tasks"] == SCALE
+    assert spans["hier.assign_cores"].attrs["path"] == "cpu"
     refine = spans["sweep.refine"].attrs
     fused = spans["pipeline.fused"].attrs
     assert refine["rounds"] == fused["refine_rounds"]
