@@ -68,9 +68,9 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    refinement against the host pass on the card for tied and zero
    contributions, and K1 on one stack whole, in halves and with the host
    evaluator's group bound, bit for bit; and coredeal against its plain
-   version and the host ``assign_cores``, bit for bit, at the node cell's
-   shape (131,072 tasks, 4,096 routers x 32 cores; timed beside the host
-   function, its three sorts and its byte bound) and on small uneven,
+   version on the card and on the host, bit for bit, at the node cell's
+   shape (131,072 tasks, 4,096 routers x 32 cores; timed beside its
+   three sorts and its byte bound) and on small uneven,
    spill, tied, 1-, 7- and 20-dimensional and NaN cases; an out-of-range
    cluster or router id raises.  Times
    sit beside the flat request of the same scenario from ``serve``.
@@ -3129,14 +3129,14 @@ COREDEAL_CASES = ("node", "uneven", "spill", "ties", "d1", "d7", "d20",
 
 
 def coredeal_cases() -> list:
-    """coredeal against its plain version on the card and against the
-    host numpy ``assign_cores``, bit for bit, on every case of
-    :func:`coredeal_inputs` (seed 30), a rerun bit for bit, one wrapper
-    launch a call, and a cluster or router id out of range raising
-    ``ValueError`` with the card left usable; at the node cell's shape
-    the wrapper, its three sorts and the plain version by CUDA events,
-    the host function and the device ``assign_cores`` (uploads and the
-    copy back) by the host clock, beside the byte bound."""
+    """coredeal against its plain version on the card and on the host
+    (CPU tensors), bit for bit, on every case of :func:`coredeal_inputs`
+    (seed 30), a rerun bit for bit, one wrapper launch a call, and a
+    cluster or router id out of range raising ``ValueError`` with the
+    card left usable; at the node cell's shape the wrapper, its three
+    sorts and the plain version by CUDA events, and ``assign_cores``
+    (uploads and the copy back) by the host clock, beside the byte
+    bound."""
     import numpy as np
     import torch
     from repro_torch.core.orderings import hilbert_bits
@@ -3147,10 +3147,10 @@ def coredeal_cases() -> list:
         rng = np.random.default_rng(30)
         labels, c2r, core_router, coords, nrouters = coredeal_inputs(case,
                                                                      rng)
-        with np.errstate(invalid="ignore"):
-            want = assign_cores(labels, c2r, core_router, coords, nrouters)
-        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        host = [torch.from_numpy(np.ascontiguousarray(a))
                 for a in (labels, c2r, core_router, coords)]
+        want = ref.coredeal_ref(*host, nrouters=nrouters).numpy()
+        args = [a.cuda() for a in host]
         n0 = ops.launch_count
         got = ops.coredeal(*args, nrouters=nrouters)
         again = ops.coredeal(*args, nrouters=nrouters)
@@ -3166,7 +3166,7 @@ def coredeal_cases() -> list:
               "plain version")
         ndiff = int((got.cpu().numpy() != want).sum())
         check(ndiff == 0, f"coredeal/{case}: {ndiff} cores differ from the "
-              "host assign_cores")
+              "plain version on the host")
         # tasks beyond their router's budget of q a core: the spill pass
         q = -(-n // len(core_router))
         over = (np.bincount(c2r[labels], minlength=nrouters)
@@ -3195,8 +3195,6 @@ def coredeal_cases() -> list:
                 sort_ms=cuda_ms(lambda: ref.sort_three(h, args[0], r), 20),
                 plain_ms=cuda_ms(lambda: ref.coredeal_ref(
                     *args, nrouters=nrouters), 5),
-                host_ms=host_ms(lambda: assign_cores(
-                    labels, c2r, core_router, coords, nrouters), 5),
                 device_assign_ms=host_ms(lambda: assign_cores(
                     labels, c2r, core_router, coords, nrouters,
                     device="cuda"), 20),
@@ -3225,7 +3223,7 @@ def coarsen_split(req) -> dict:
     (median of 3, host clock; every device call synchronised): the
     coarsening's cluster labels (the device partitioner), the whole
     ``aggregate_tasks`` (labels plus the host contractions), and the
-    expansion to cores (``assign_cores``, on the host and on the card)."""
+    expansion to cores (``assign_cores`` on the card)."""
     import numpy as np
     import torch
     from repro_torch.core.orderings import order_points
@@ -3252,12 +3250,10 @@ def coarsen_split(req) -> dict:
     agg_s, agg = timed(lambda: aggregate_tasks(req.graph, n, device="cuda",
                                                backend="torch"))
     c2r = np.arange(n)
-    expand_s, _ = timed(lambda: assign_cores(agg.labels, c2r, core_router,
-                                             tc, n))
     device_s, _ = timed(lambda: assign_cores(agg.labels, c2r, core_router,
                                              tc, n, device="cuda"))
     return {"labels_s": labels_s, "aggregate_s": agg_s,
-            "contraction_s": agg_s - labels_s, "assign_cores_s": expand_s,
+            "contraction_s": agg_s - labels_s,
             "assign_cores_device_s": device_s,
             "coarse_edges": int(len(agg.coarse.edges))}
 
@@ -4216,7 +4212,6 @@ def main(argv=None) -> int:
         "ms": cd_lead["ms"], "plain_ms": cd_lead["plain_ms"],
         "bound_ms": cd_lead["bound_ms"], "bound_by": cd_lead["bound_by"],
         "library_ms": None, "sort_ms": cd_lead["sort_ms"],
-        "host_ms": cd_lead["host_ms"],
         "shape": {k: cd_lead[k] for k in ("case", "n", "d", "clusters",
                                           "routers", "cores")},
         "tolerance": "exact",

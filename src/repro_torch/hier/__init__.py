@@ -36,10 +36,11 @@ Select it with ``PipelineConfig(hierarchy=HierarchySpec.node())`` /
 as sugar.
 """
 
+from repro_torch.core.orderings import hilbert_key
+
 from .aggregate import Aggregation, aggregate_tasks
 from .levels import group_units, map_hierarchical, router_view
-from .refine import (assign_cores, hilbert_key, polish_groups, refine_qap,
-                     refine_swaps)
+from .refine import assign_cores, polish_groups, refine_qap, refine_swaps
 from .spec import HierarchySpec, Level, normalize_config_hierarchy
 
 __all__ = [

@@ -15,8 +15,8 @@ mapping):
    level j-1 units (:func:`group_units`) represented by their MEDOID —
    a real member's integer coordinates, so hop metrics treat a group
    exactly like a router.
-2. **map at the top** — the UNCHANGED batched rotation sweep
-   (``MappingPipeline.map_candidates`` + ``CandidateSearch``, or the
+2. **map at the top** — the UNCHANGED rotation sweep
+   (``MappingPipeline.best_rotation``: the staged sweep, or the
    one-pass device sweep of :mod:`repro_torch.mapping.fused`, which
    then also runs a ``swap`` top level's refinement) runs once, at the
    top granularity: every added level divides the sweep's point count
@@ -51,11 +51,10 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.core.machine import Allocation
 from repro_torch.core.mapping import MappingResult
-from repro_torch.core.orderings import order_points
+from repro_torch.core.orderings import hilbert_key, order_points
 
 from .aggregate import aggregate_tasks
-from .refine import (assign_cores, assign_path, hilbert_key, polish_groups,
-                     refine_qap, refine_swaps)
+from .refine import assign_cores, polish_groups, refine_qap, refine_swaps
 from .spec import DEFAULT_GROUP_ARITY
 
 
@@ -119,16 +118,6 @@ def group_units(unit_coords: np.ndarray, ngroups: int, *,
     order = np.lexsort((np.arange(len(fc)), d2, labels))
     first = np.searchsorted(labels[order], np.arange(ngroups))
     return labels, unit_coords[order[first]]
-
-
-def _refine_level(machine, coarse, unit_coords, assignment, lvl, *,
-                  objective, score_backend, device):
-    """Dispatch one level's refinement pass on its ``refine_mode``."""
-    fn = refine_swaps if lvl.refine_mode == "swap" else refine_qap
-    return fn(machine, coarse, unit_coords, assignment,
-              objective=objective, rounds=lvl.refine_rounds,
-              top=lvl.refine_top, degree=lvl.refine_degree,
-              score_backend=score_backend, device=device)
 
 
 def map_hierarchical(
@@ -245,51 +234,18 @@ def map_hierarchical(
         cands = rotation_candidates(aggs[top].coarse.coords.shape[1],
                                     pc.shape[1], cfg.rotations)
         root.annotate(candidates=len(cands))
-        top_lvl = levels[top]
-        coarse_best = None
-        if pipe._fused is not None and top_lvl.refine_mode == "swap":
-            # the refine spec folds the top level's swap-refinement
-            # rounds into the SAME device pass (sweep + refinement, the
-            # winner's row never copied to the host unrefined); the
-            # refine span below then only unpacks stats and expands
-            # downward
-            with obs.span("pipeline.fused") as sp:
-                coarse_best = pipe._fused.run(
-                    aggs[top].coarse, top_alloc, aggs[top].coarse.coords,
-                    pc, cands, task_weights=aggs[top].weights,
-                    refine=dict(rounds=top_lvl.refine_rounds,
-                                top=top_lvl.refine_top,
-                                degree=top_lvl.refine_degree))
-            if coarse_best is not None:
-                timings["fused_s"] = sp.duration_s
-                level_stats[top]["map_s"] = sp.duration_s
-        if coarse_best is None:
-            with obs.span("pipeline.partition",
-                          points=int(cluster_counts[top]
-                                     + unit_counts[top])) as sp:
-                results = pipe.map_candidates(
-                    aggs[top].coarse.coords, pc, cands,
-                    task_weights=aggs[top].weights)
-            timings["partition_s"] = sp.duration_s
-            level_stats[top]["map_s"] = sp.duration_s
-            with obs.span("pipeline.score",
-                          candidates=len(cands)) as sp:
-                if len(results) == 1:
-                    coarse_best = results[0]
-                else:
-                    coarse_best, best_i, scores = pipe.search.best(
-                        aggs[top].coarse, top_alloc, results)
-                    coarse_best.score = float(scores[best_i][0])
-            timings["score_s"] = sp.duration_s
-            level_stats[top]["map_s"] += sp.duration_s
+        coarse_best, sweep_t = pipe.best_rotation(
+            aggs[top].coarse, top_alloc, aggs[top].coarse.coords, pc,
+            cands, task_weights=aggs[top].weights)
+        timings.update(sweep_t)
+        level_stats[top]["map_s"] = sum(sweep_t.values())
 
         # -- stage 3: refine + expand, top-down -------------------------
         # When the fused program already refined the top level on
         # device, its refine span only unpacks stats and expands — the
         # stats/timings schema is the same either way (refine_s always
         # present).
-        fused_refined = (coarse_best is not None
-                         and coarse_best.stats.get("fused_refine", False))
+        fused_refined = coarse_best.stats.get("fused_refine", False)
         cur = np.asarray(coarse_best.task_to_proc, dtype=np.int64)
         # the winning rotation of the top sweep, applied to BOTH sides
         # of every group-level expansion below: Alg. 1's consistent-
@@ -312,11 +268,13 @@ def map_hierarchical(
                         "refine_evaluated", "refine_history",
                         "refine_initial", "refine_final")}
                 else:
-                    cur, rstats_i = _refine_level(
-                        machine, aggs[i].coarse, m_coords[i], cur, lvl,
-                        objective=pipe.search.objective,
-                        score_backend=cfg.score_backend,
-                        device=cfg.device)
+                    refine = (refine_swaps if lvl.refine_mode == "swap"
+                              else refine_qap)
+                    cur, rstats_i = refine(
+                        machine, aggs[i].coarse, m_coords[i], cur,
+                        objective=pipe.objective, rounds=lvl.refine_rounds,
+                        top=lvl.refine_top, degree=lvl.refine_degree,
+                        score_backend=cfg.score_backend, device=cfg.device)
                 if i > 0:
                     # one-level expansion as a per-group GEOMETRIC
                     # match (paper Alg. 1's consistent-ordering trick):
@@ -333,21 +291,12 @@ def map_hierarchical(
                     if pperm is not None and units.shape[1] == len(pperm):
                         units = units[:, pperm]
                     sub = np.lexsort((hilbert_key(units), m_member[i]))
-                    with obs.span("hier.assign_cores",
-                                  tasks=len(aggs[i].labels),
-                                  units=len(m_coords[i]),
-                                  path=assign_path(cfg.device)):
-                        cur = sub[assign_cores(
-                            aggs[i].labels, cur, m_member[i][sub],
-                            child, len(m_coords[i]), device=cfg.device)]
+                    cur = sub[assign_cores(
+                        aggs[i].labels, cur, m_member[i][sub], child,
+                        len(m_coords[i]), device=cfg.device)]
                 else:
-                    with obs.span("hier.assign_cores",
-                                  tasks=len(aggs[0].labels),
-                                  units=int(nrouters),
-                                  path=assign_path(cfg.device)):
-                        t2p = assign_cores(aggs[0].labels, cur,
-                                           core_router, tc, nrouters,
-                                           device=cfg.device)
+                    t2p = assign_cores(aggs[0].labels, cur, core_router, tc,
+                                       nrouters, device=cfg.device)
             timings["refine_s"] += sp.duration_s
             level_stats[i]["refine_s"] = sp.duration_s
             level_stats[i]["refine_accepted"] = \
@@ -370,7 +319,7 @@ def map_hierarchical(
                     cur, pstats = polish_groups(
                         machine, aggs[i - 1].coarse, m_coords[i - 1],
                         cur, m_member[i],
-                        objective=pipe.search.objective,
+                        objective=pipe.objective,
                         rounds=levels[i - 1].polish_rounds,
                         score_backend=cfg.score_backend,
                         device=cfg.device)

@@ -55,22 +55,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.metrics import (STACK_BYTE_BUDGET, get_evaluator,
                                       pairwise_hops)
 from repro_torch.core.metrics import lex_less as _lex_less
-from repro_torch.core.orderings import hilbert_key
 from repro_torch.kernels.coredeal import coredeal
 
 # gain quantization of refine_qap's bucket-ordered accept: more buckets
 # = closer to strict best-first, fewer = more id-deterministic batching
 _QAP_BUCKETS = 32
-
-
-def assign_path(device) -> str:
-    """The path :func:`assign_cores` takes for ``device``: ``"host"``
-    (numpy), ``"cuda"`` (the coredeal kernels) or ``"cpu"`` (their
-    plain-torch version)."""
-    return "host" if device is None else torch.device(device).type
 
 
 def assign_cores(
@@ -79,7 +72,7 @@ def assign_cores(
     core_router: np.ndarray,
     task_coords: np.ndarray,
     nrouters: int,
-    device=None,
+    device,
 ) -> np.ndarray:
     """Expand cluster -> node into task -> core (intra-node SFC order).
 
@@ -100,53 +93,22 @@ def assign_cores(
     allocation (SFC) order.  In particular ``n == ncores`` is always a
     BIJECTION, matching the flat pipeline's tnum == pnum contract.
 
-    A device runs the same arithmetic there, bit for bit
-    (:mod:`repro_torch.kernels.coredeal`: the kernels on a CUDA device, its
-    plain-torch version on ``"cpu"``), from the four inputs uploaded, and
-    copies the answer back; :func:`assign_path` names the path taken.
-    ``device=None`` runs the numpy body below, kept as the host reference
-    the device paths are held to (the pipeline always passes a device).
+    The four inputs are uploaded to ``device``, dealt there
+    (:mod:`repro_torch.kernels.coredeal`: the kernels on a CUDA device,
+    their plain-torch version on ``"cpu"``) and the answer copied back,
+    inside a ``hier.assign_cores`` span whose ``path`` is the device's
+    type.
     """
-    if device is not None:
-        dev = torch.device(device)
+    dev = torch.device(device)
 
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
-                dev)
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
+    with obs.span("hier.assign_cores", tasks=len(labels), units=nrouters,
+                  path=dev.type):
         return coredeal(up(labels, np.int64), up(cluster_to_router, np.int64),
                         up(core_router, np.int64), up(task_coords, np.float64),
                         nrouters=nrouters).cpu().numpy()
-    labels = np.asarray(labels)
-    n = len(labels)
-    ncores = len(core_router)
-    # tasks grouped by ROUTER (then cluster, then Hilbert index): the
-    # rank is taken within the router group, so even a non-injective
-    # cluster -> router map (possible when skewed task weights starve a
-    # coarse part) packs co-located clusters without collisions
-    r_task = np.asarray(cluster_to_router)[labels]
-    order = np.lexsort((hilbert_key(task_coords), labels, r_task))
-    rsz_t = np.bincount(r_task, minlength=nrouters)  # tasks per router
-    rstarts_t = np.cumsum(rsz_t) - rsz_t
-    r = r_task[order]
-    rank = np.arange(n) - rstarts_t[r]
-
-    # allocation core rows grouped by router (allocation order within)
-    core_order = np.argsort(core_router, kind="stable").astype(np.int64)
-    rsizes = np.bincount(core_router, minlength=nrouters)
-    rstarts = np.cumsum(rsizes) - rsizes
-
-    q = -(-n // ncores)  # global per-core task budget (>= 1)
-    fits = rank < rsizes[r] * q
-    t2p = np.empty(n, dtype=np.int64)
-    t2p[order[fits]] = core_order[rstarts[r[fits]]
-                                  + rank[fits] % rsizes[r[fits]]]
-    if not fits.all():
-        # spill: fill the remaining per-core budget in allocation order
-        counts = np.bincount(t2p[order[fits]], minlength=ncores)
-        free = np.repeat(core_order, q - counts[core_order])
-        t2p[order[~fits]] = free[: int((~fits).sum())]
-    return t2p
 
 
 def _pad_stack(stack: np.ndarray, ndim: int) -> np.ndarray:
@@ -263,6 +225,63 @@ def _proposal_scores(machine, edges, w, router_coords, cc, proposals,
     return scores
 
 
+def _hot_and_near(machine, edges, w, router_coords, c2r, top, degree):
+    """One round's ``(cc, hot, near)`` of :func:`refine_swaps` and
+    :func:`refine_qap` (``None``: nothing to try): the clusters' unit
+    coordinates, the ``top`` hottest clusters by weighted-hops
+    contribution, and each one's ``degree`` network-nearest other units
+    by a full STABLE argsort — distance, then unit id, the order the
+    fused device refinement reproduces bit for bit (argpartition would
+    pick among the constant integer-hop ties arbitrarily)."""
+    nclusters, nrouters = len(c2r), len(router_coords)
+    cc = router_coords[c2r]
+    if len(edges) == 0:
+        return None
+    h = pairwise_hops(machine, cc[edges[:, 0]], cc[edges[:, 1]]) * w
+    contrib = (np.bincount(edges[:, 0], weights=h, minlength=nclusters)
+               + np.bincount(edges[:, 1], weights=h, minlength=nclusters))
+    hot = np.argsort(-contrib, kind="stable")[:top]
+    hot = hot[contrib[hot] > 0]
+    if len(hot) == 0:
+        return None
+    shape = (len(hot), nrouters, cc.shape[1])
+    d = pairwise_hops(machine,
+                      np.broadcast_to(cc[hot][:, None, :], shape),
+                      np.broadcast_to(router_coords[None, :, :], shape)
+                      ).astype(np.float64)
+    d[np.arange(len(hot)), c2r[hot]] = np.inf  # not itself
+    k = min(degree, nrouters - 1)
+    if k <= 0:
+        return None
+    return cc, hot, np.argsort(d, axis=1, kind="stable")[:, :k]
+
+
+def _apply_proposals(c2r, r2c, proposals, sel):
+    """Copies of the assignment and occupant tables with the proposals
+    ``sel`` applied (each moves ``a`` to ``rb`` and ``b`` to ``ra``)."""
+    nc, nr = c2r.copy(), r2c.copy()
+    for i in sel:
+        a, ra, b, rb = proposals[i]
+        nc[a] = rb
+        nr[rb] = a
+        nr[ra] = b
+        if b >= 0:
+            nc[b] = ra
+    return nc, nr
+
+
+def _refine_stats(history, accepted, evaluated) -> dict:
+    """The ``refine_*`` stats of a refinement pass."""
+    return {
+        "refine_rounds_run": len(history) - 1,
+        "refine_accepted": accepted,
+        "refine_evaluated": evaluated,
+        "refine_history": [tuple(float(x) for x in h) for h in history],
+        "refine_initial": float(history[0][0]),
+        "refine_final": float(history[-1][0]),
+    }
+
+
 def refine_swaps(
     machine,
     coarse,
@@ -332,34 +351,11 @@ def refine_swaps(
     evaluated_total = 0
 
     for _ in range(max(rounds, 0)):
-        cc = router_coords[c2r]
-        if len(edges) == 0:
+        round_in = _hot_and_near(machine, edges, w, router_coords, c2r,
+                                 top, degree)
+        if round_in is None:
             break
-        # per-cluster objective contribution (weighted hops both ways)
-        h = pairwise_hops(machine, cc[edges[:, 0]], cc[edges[:, 1]]) * w
-        contrib = (np.bincount(edges[:, 0], weights=h, minlength=nclusters)
-                   + np.bincount(edges[:, 1], weights=h,
-                                 minlength=nclusters))
-        hot = np.argsort(-contrib, kind="stable")[:top]
-        hot = hot[contrib[hot] > 0]
-        if len(hot) == 0:
-            break
-
-        # network-nearest allocated routers per hot cluster
-        shape = (len(hot), nrouters, cc.shape[1])
-        d = pairwise_hops(machine,
-                          np.broadcast_to(cc[hot][:, None, :], shape),
-                          np.broadcast_to(router_coords[None, :, :], shape)
-                          ).astype(np.float64)
-        d[np.arange(len(hot)), c2r[hot]] = np.inf  # not itself
-        k = min(degree, nrouters - 1)
-        if k <= 0:
-            break
-        # full stable argsort (NOT argpartition): integer hop distances
-        # tie constantly, and the stable order — distance, then router
-        # id — is the one the fused device refinement reproduces bit
-        # for bit (argpartition picks tie-holders arbitrarily)
-        near = np.argsort(d, axis=1, kind="stable")[:, :k]
+        cc, hot, near = round_in
 
         # dedup unordered proposals: (cluster a, target router rb)
         seen = set()
@@ -397,25 +393,14 @@ def refine_swaps(
         if not chosen:
             break
 
-        def _apply(sel, c2r=c2r, r2c=r2c):
-            nc, nr = c2r.copy(), r2c.copy()
-            for i in sel:
-                a, ra, b, rb = proposals[i]
-                nc[a] = rb
-                nr[rb] = a
-                nr[ra] = b
-                if b >= 0:
-                    nc[b] = ra
-            return nc, nr
-
-        new_c2r, new_r2c = _apply(chosen)
+        new_c2r, new_r2c = _apply_proposals(c2r, r2c, proposals, chosen)
         combined = _scores(machine, edges, w, router_coords[new_c2r][None],
                            objective, evaluator)[0]
         if len(chosen) > 1 and not _lex_less(combined, base):
             # accepted swaps interacted badly: keep only the best one,
             # whose exact score is already known to beat the base
             chosen = [int(order[0])]
-            new_c2r, new_r2c = _apply(chosen)
+            new_c2r, new_r2c = _apply_proposals(c2r, r2c, proposals, chosen)
             combined = scores[chosen[0]]
         if not _lex_less(combined, base):
             break  # cannot happen for a single exact swap; safety net
@@ -424,15 +409,8 @@ def refine_swaps(
         history.append(base.copy())
         accepted_total += len(chosen)
 
-    stats = {
-        "refine_rounds_run": len(history) - 1,
-        "refine_accepted": accepted_total,
-        "refine_evaluated": evaluated_total,
-        "refine_history": [tuple(float(x) for x in h) for h in history],
-        "refine_initial": float(history[0][0]),
-        "refine_final": float(history[-1][0]),
-    }
-    return c2r, stats
+    return c2r, _refine_stats(history, accepted_total, evaluated_total)
+
 
 def refine_qap(
     machine,
@@ -512,30 +490,11 @@ def refine_qap(
     evaluated_total = 0
 
     for _ in range(max(rounds, 0)):
-        cc = router_coords[c2r]
-        if len(edges) == 0:
+        round_in = _hot_and_near(machine, edges, w, router_coords, c2r,
+                                 top, degree)
+        if round_in is None:
             break
-        h = pairwise_hops(machine, cc[edges[:, 0]], cc[edges[:, 1]]) * w
-        contrib = (np.bincount(edges[:, 0], weights=h, minlength=nclusters)
-                   + np.bincount(edges[:, 1], weights=h,
-                                 minlength=nclusters))
-        hot = np.argsort(-contrib, kind="stable")[:top]
-        hot = hot[contrib[hot] > 0]
-        if len(hot) == 0:
-            break
-
-        # network-nearest allocated units (the refine_swaps
-        # neighbourhood; stable distance-then-id order)
-        shape = (len(hot), nrouters, cc.shape[1])
-        d = pairwise_hops(machine,
-                          np.broadcast_to(cc[hot][:, None, :], shape),
-                          np.broadcast_to(router_coords[None, :, :], shape)
-                          ).astype(np.float64)
-        d[np.arange(len(hot)), c2r[hot]] = np.inf  # not itself
-        k = min(degree, nrouters - 1)
-        if k <= 0:
-            break
-        near = np.argsort(d, axis=1, kind="stable")[:, :k]
+        cc, hot, near = round_in
 
         seen = set()
         proposals = []  # (a, ra, b_or_minus1, rb)
@@ -601,18 +560,7 @@ def refine_qap(
         if not chosen:
             break
 
-        def _apply(sel, c2r=c2r, r2c=r2c):
-            nc, nr = c2r.copy(), r2c.copy()
-            for i in sel:
-                a, ra, b, rb = proposals[i]
-                nc[a] = rb
-                nr[rb] = a
-                nr[ra] = b
-                if b >= 0:
-                    nc[b] = ra
-            return nc, nr
-
-        new_c2r, new_r2c = _apply(chosen)
+        new_c2r, new_r2c = _apply_proposals(c2r, r2c, proposals, chosen)
         combined = _scores(machine, edges, w, router_coords[new_c2r][None],
                            objective, evaluator)[0]
         if len(chosen) > 1 and not _lex_less(combined, base):
@@ -621,7 +569,7 @@ def refine_qap(
             best = np.lexsort(tuple(scores[:, j] for j in
                                     reversed(range(scores.shape[1]))))[0]
             chosen = [int(best)]
-            new_c2r, new_r2c = _apply(chosen)
+            new_c2r, new_r2c = _apply_proposals(c2r, r2c, proposals, chosen)
             combined = scores[chosen[0]]
         if not _lex_less(combined, base):
             break  # cannot happen for a single exact proposal; safety
@@ -630,15 +578,7 @@ def refine_qap(
         history.append(base.copy())
         accepted_total += len(chosen)
 
-    stats = {
-        "refine_rounds_run": len(history) - 1,
-        "refine_accepted": accepted_total,
-        "refine_evaluated": evaluated_total,
-        "refine_history": [tuple(float(x) for x in h) for h in history],
-        "refine_initial": float(history[0][0]),
-        "refine_final": float(history[-1][0]),
-    }
-    return c2r, stats
+    return c2r, _refine_stats(history, accepted_total, evaluated_total)
 
 
 def polish_groups(

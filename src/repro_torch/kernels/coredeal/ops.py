@@ -51,9 +51,9 @@ def coredeal(labels: torch.Tensor, cluster_to_router: torch.Tensor,
     core_router       : (ncores,) int64 — the router of each core row.
     coords            : (n, d) float64 — the tasks' coordinates, d in 1..62.
 
-    Returns the (n,) int64 core row of every task, bit-equal to
-    :func:`repro_torch.hier.refine.assign_cores`'s host answer.  A cluster
-    or router id out of range raises ``ValueError``.
+    Returns the (n,) int64 core row of every task, bit-equal to the
+    plain version :func:`.ref.coredeal_ref`.  A cluster or router id out
+    of range raises ``ValueError``.
     """
     global launch_count
     if not isinstance(coords, torch.Tensor) or coords.dim() != 2:

@@ -15,12 +15,14 @@
   processor dimension permutations become outermost segments of one
   ``order_points_batched`` call per side, bit-identical to the
   per-candidate loop (``sweep="loop"``, kept as the oracle);
-- :meth:`map` enumerates the rotation candidates and scores them with
-  the batched :class:`repro_torch.mapping.candidates.CandidateSearch`
+- :meth:`best_rotation` picks the winner of one sweep: it scores the
+  candidates with the batched
+  :class:`repro_torch.mapping.candidates.CandidateSearch`
   (``score_backend`` selects the CUDA kernel, the plain torch scorer or
   the numpy reference; ``device`` says where the partitioner and the
   scoring run), or runs the whole sweep on the device in one pass
-  (:mod:`repro_torch.mapping.fused`).
+  (:mod:`repro_torch.mapping.fused`);
+- :meth:`map` enumerates the rotation candidates and maps through it.
 
 ``core.mapping.Mapper`` is a thin adapter over this class.  A non-flat
 hierarchy maps through :func:`repro_torch.hier.levels.map_hierarchical`.
@@ -253,6 +255,8 @@ class MappingPipeline:
         self.search = CandidateSearch(cfg.objective,
                                       backend=cfg.score_backend,
                                       device=cfg.device)
+        # the objective tuple the sweep and every refinement minimise
+        self.objective = self.search.objective
         self.partition_backend = resolve_partition_backend(
             cfg.partition_backend, cfg.device)
         self.order_backend = ("torch" if (self.partition_backend == "torch"
@@ -443,6 +447,61 @@ class MappingPipeline:
 
     # -- stage 4: candidate search ---------------------------------------
 
+    def best_rotation(self, graph, alloc: Allocation, task_coords,
+                      proc_coords, cands, task_weights=None):
+        """The winner of one rotation sweep and its stage timings:
+        ``(MappingResult, {"fused_s"} | {"partition_s", "score_s"})``,
+        each read from its span under the caller's ``pipeline.map``.
+
+        The one-pass device sweep (``pipeline.fused``) runs when the
+        pipeline built one and it takes the stack; a non-flat
+        hierarchy's ``swap`` top level folds its refinement rounds into
+        that pass (``stats["fused_refine"]``), and a ``qap`` top level
+        takes the staged path.  The staged path partitions every
+        candidate (``pipeline.partition``) and scores them
+        (``pipeline.score``); a single candidate is not scored.
+        """
+        tc = np.asarray(task_coords, dtype=np.float64)
+        pc = np.asarray(proc_coords, dtype=np.float64)
+        fused, refine = self._fused, None
+        spec = self.config.hierarchy
+        if not spec.is_flat:
+            top = spec.levels[-1]
+            if top.refine_mode == "swap":
+                refine = dict(rounds=top.refine_rounds, top=top.refine_top,
+                              degree=top.refine_degree)
+            else:
+                fused = None
+        if fused is not None:
+            with obs.span("pipeline.fused") as sp:
+                best = fused.run(graph, alloc, tc, pc, cands,
+                                 task_weights=task_weights, refine=refine)
+            if best is not None:
+                # partition + match + score ran as one device pass;
+                # the stage split does not exist here
+                return best, {"fused_s": sp.duration_s}
+        with obs.span("pipeline.partition",
+                      points=int(len(tc) + alloc.n)) as sp:
+            if self._per_candidate(tc, pc, cands):
+                t2p = np.stack([r.task_to_proc for r in self.map_candidates(
+                    tc, pc, cands, task_weights=task_weights)])
+            else:
+                t2p = self._sweep_t2p(self.sweep_plan(
+                    tc, pc, cands, task_weights))
+        timings = {"partition_s": sp.duration_s}
+        with obs.span("pipeline.score", candidates=len(cands)) as sp:
+            best_i, score = 0, float("nan")
+            if len(cands) > 1:
+                best_i, scores = self.search.best_of(graph, alloc, t2p)
+                score = float(scores[best_i][0])
+            row = t2p[best_i]
+            if isinstance(row, torch.Tensor):
+                row = row.to(torch.int32).cpu().numpy()
+            best = MappingResult(row, score=score,
+                                 rotation=rotation_of(cands[best_i]))
+        timings["score_s"] = sp.duration_s
+        return best, timings
+
     def map(self, graph, alloc: Allocation,
             task_coords: np.ndarray | None = None,
             task_weights: np.ndarray | None = None) -> MappingResult:
@@ -470,7 +529,6 @@ class MappingPipeline:
         # span-derived stage timings (repro_torch.obs): the spans ARE the
         # clocks — ``stats["timings"]`` is {fused_s | partition_s +
         # score_s} + total_s, derived from the span durations
-        timings = {}
         with obs.span("pipeline.map", hierarchy="flat",
                       partition_backend=self.partition_backend,
                       score_backend=cfg.score_backend,
@@ -483,47 +541,14 @@ class MappingPipeline:
             sweep_points = int(len(tc) + alloc.n)
             root.annotate(sweep_points=sweep_points,
                           candidates=len(cands))
-            best = None
-            if self._fused is not None:
-                with obs.span("pipeline.fused") as sp:
-                    best = self._fused.run(graph, alloc, tc, pc, cands,
-                                           task_weights=task_weights)
-                if best is not None:
-                    # partition + match + score ran as one device pass;
-                    # the stage split does not exist here
-                    timings["fused_s"] = sp.duration_s
-            if best is None:
-                with obs.span("pipeline.partition",
-                              points=sweep_points) as sp:
-                    if self._per_candidate(tc, pc, cands):
-                        results = self.map_candidates(
-                            tc, pc, cands, task_weights=task_weights)
-                        t2p = np.stack([r.task_to_proc for r in results])
-                    else:
-                        t2p = self._sweep_t2p(self.sweep_plan(
-                            tc, pc, cands, task_weights))
-                timings["partition_s"] = sp.duration_s
-                with obs.span("pipeline.score",
-                              candidates=len(cands)) as sp:
-                    best_i, score = 0, float("nan")
-                    if len(cands) > 1:
-                        best_i, scores = self.search.best_of(
-                            graph, alloc, t2p)
-                        score = float(scores[best_i][0])
-                    row = t2p[best_i]
-                    if isinstance(row, torch.Tensor):
-                        row = row.to(torch.int32).cpu().numpy()
-                    best = MappingResult(row, score=score,
-                                         rotation=rotation_of(cands[best_i]))
-                timings["score_s"] = sp.duration_s
-        timings["total_s"] = root.duration_s
+            best, timings = self.best_rotation(graph, alloc, tc, pc, cands,
+                                               task_weights=task_weights)
         # stats schema v2: ONE per-level entry per mapped granularity
         # (flat = the single core level); the legacy keys (hierarchy /
         # sweep_points / timings) stay derived — see README
         # "MappingResult.stats schema"
-        map_s = timings.get(
-            "fused_s",
-            timings.get("partition_s", 0.0) + timings.get("score_s", 0.0))
+        map_s = sum(timings.values())
+        timings["total_s"] = root.duration_s
         best.stats.update(
             schema=2,
             hierarchy="flat",

@@ -6,9 +6,9 @@ refinement half of ``mapping/fused.py``) against the reference
 Held bit for bit: ``aggregate_tasks`` (labels, sizes, weights, centroids,
 coarse edges and volumes, intra volume) with both partition engines,
 ``router_view``, ``group_units``, ``assign_cores`` (uneven router core
-counts, the spill, tied points, the node cell's shape reduced; on the
-host and through the coredeal kernel's plain version, up to 20
-dimensions), ``refine_swaps`` / ``refine_qap`` /
+counts, the spill, tied points, the node cell's shape reduced; through
+the coredeal kernel's plain version, up to 20 dimensions, with inputs
+as the hierarchy hands them over), ``refine_swaps`` / ``refine_qap`` /
 ``polish_groups`` from scrambled starts with the numpy evaluator on both
 sides, and ``MappingPipeline.map`` for node, depth-3, depth-4 and
 ``from_machine`` specs: the port's fused path (device partitioner on the
@@ -177,18 +177,26 @@ def _assign_case(case):
 
 
 @pytest.mark.parametrize(
-    "case,device",
-    [pytest.param(c, None, id=c) for c in ASSIGN_CASES]
-    + [pytest.param(c, "cpu", id=f"{c}-on-cpu") for c in ASSIGN_CASES])
-def test_assign_cores_matches_reference(case, device):
-    """The host numpy expansion (``device=None``) and the device one
-    (``"cpu"``: the coredeal kernel's plain-torch version) against the
-    reference."""
+    "case,view",
+    [pytest.param(c, False, id=f"{c}-on-cpu") for c in ASSIGN_CASES]
+    + [pytest.param(c, True, id=f"{c}-cpu-view") for c in ASSIGN_CASES])
+def test_assign_cores_matches_reference(case, view):
+    """The expansion on ``"cpu"`` (the coredeal kernel's plain-torch
+    version) against the reference; ``view`` hands the inputs over as
+    ``levels.py`` can: coordinates as a non-contiguous column view, the
+    labels and the cluster -> router table as int32 (the upload
+    converts them)."""
     labels, c2r, core_router, coords, nrouters = _assign_case(case)
     n, ncores = len(labels), len(core_router)
     want = RH.assign_cores(labels, c2r, core_router, coords, nrouters)
-    got = hier.assign_cores(labels, c2r, core_router, coords, nrouters,
-                            device=device)
+    args = (labels, c2r, core_router, coords)
+    if view:
+        wide = np.concatenate([coords[:, ::-1], coords], axis=1)
+        args = (labels.astype(np.int32), c2r.astype(np.int32), core_router,
+                wide[:, coords.shape[1]:])
+        assert not args[3].flags.c_contiguous
+        assert np.array_equal(args[3], coords)
+    got = hier.assign_cores(*args, nrouters, device="cpu")
     assert got.dtype == np.int64
     assert np.array_equal(got, want)
     if n == ncores:
@@ -197,8 +205,6 @@ def test_assign_cores_matches_reference(case, device):
     if case == "node":
         # each router's 32 tasks (one cluster) fill its 32 cores
         assert np.array_equal(core_router[got], c2r[labels])
-    assert hier.refine.assign_path(device) == ("host" if device is None
-                                               else "cpu")
 
 
 def test_coredeal_wrapper_checks():
@@ -570,6 +576,40 @@ def test_map_spans_and_fused_refinement_reads():
     assert spans["pipeline.map"].attrs["device"] == "cpu"
     # the expansion to cores ran on the pipeline's device
     assert spans["hier.assign_cores"].attrs["path"] == "cpu"
+
+
+def test_depth3_top_sweep_is_staged_under_the_map_span():
+    """A ``qap`` top level (``with_depth(3)``) sweeps on the staged path:
+    ``pipeline.partition`` then ``pipeline.score`` under ``pipeline.map``,
+    no ``pipeline.fused``, and both expansions on the pipeline's device
+    under ``pipeline.refine``."""
+    g, alloc, rcfg, _ = _scenario("minighost-xk7_sparse-depth3-wh")
+    assert rcfg.hierarchy.levels[-1].refine_mode == "qap"
+    pipe = MappingPipeline(_port_config(rcfg))
+    assert isinstance(pipe._fused, FusedSweep)
+    obs.reset()
+    res = pipe.map(compat.taskgraph(g), compat.allocation(alloc))
+    spans = obs.finished(res.stats["trace_id"])
+    by_id = {s.span_id: s for s in spans}
+    parent = {s.name: by_id[s.parent_id].name for s in spans
+              if s.parent_id in by_id}
+    names = [s.name for s in spans]
+    assert "pipeline.fused" not in names
+    assert parent["pipeline.partition"] == parent["pipeline.score"] \
+        == "pipeline.map"
+    part = next(s for s in spans if s.name == "pipeline.partition")
+    score = next(s for s in spans if s.name == "pipeline.score")
+    assert part.t0 <= score.t0
+    assert set(res.stats["timings"]) >= {"partition_s", "score_s"}
+    assert "fused_s" not in res.stats["timings"]
+    top = res.stats["levels"][-1]
+    assert top["map_s"] == (res.stats["timings"]["partition_s"]
+                            + res.stats["timings"]["score_s"])
+    assigns = [s for s in spans if s.name == "hier.assign_cores"]
+    assert len(assigns) == 2
+    for s in assigns:
+        assert by_id[s.parent_id].name == "pipeline.refine"
+        assert s.attrs["path"] == "cpu"
 
 
 @pytest.mark.parametrize("hierarchy", ["node", "depth3"])
