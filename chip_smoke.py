@@ -18,7 +18,15 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    its dimension must each raise ValueError, and a valid call after them
    must equal the one before bit for bit; the kernel (under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync), the plain
-   version and (at full size) the bound are timed.
+   version and (at full size) the bound are timed.  Then the contract
+   kernels (the hierarchy's contraction) against their plain version on
+   the host and numpy's ``bincount`` / ``unique`` body, bit for bit, at
+   the node cell's shape (131,072 tasks, 770,048 edges, 4,096 clusters:
+   timed beside the two sorts, the plain version, numpy's body, the
+   uploads and the byte bound), at a depth-3 second level's and on small
+   weighted, one-cluster, one-task-a-cluster, repeated-edge and
+   self-loop, 1- and 5-dimensional cases: a rerun bit for bit, one
+   launch a call, an endpoint or a label out of range raising.
 3. ``partition`` — the device partitioner (``core/partition_torch.py``)
    against the host numpy engine, bit for bit, on both sides of the
    rotation sweeps of the four served scenarios at ``--scale`` tasks
@@ -61,8 +69,9 @@ exits non-zero and prints no result.  Phases, each printing one JSON line:
    segscan (the top sweep is weighted by cluster sizes) at least once,
    mjfinish once a sweep that hands off (two a node request: the
    coarsening and the router side), coredeal once an expansion to cores
-   or units, every span's ``path`` ``"cuda"`` (one a node request, two a
-   depth-3 one); and equal, bit for bit, to the all-host path (numpy
+   or units and contract once a coarsening level, every
+   ``hier.assign_cores`` and ``hier.contract`` span's ``path`` ``"cuda"``
+   (one of each a node request, two a depth-3 one); and equal, bit for bit, to the all-host path (numpy
    partitioner and scorer, ``fused="off"``) for WeightedHops and to the staged path with
    the same K1 scorer for the latency objective.  Before them: the fused
    refinement against the host pass on the card for tied and zero
@@ -501,6 +510,200 @@ def range_error_cases() -> dict:
         check(torch.equal(before[key], after[key]),
               f"range errors: {key} differs after a faulty launch")
     return raised
+
+
+def numpy_contraction(labels, edges, ew, tc, w, nclusters) -> dict:
+    """The hierarchy's contraction as numpy computes it (the reference's
+    ``aggregate_tasks`` body): the arrays the contract kernels must
+    equal bit for bit."""
+    import numpy as np
+    n, d = tc.shape
+    wv = np.ones(n) if w is None else w
+    cw = np.bincount(labels, weights=wv, minlength=nclusters)
+    denom = np.where(cw > 0, cw, 1.0)
+    cents = np.stack([np.bincount(labels, weights=tc[:, j] * wv,
+                                  minlength=nclusters) / denom
+                      for j in range(d)], axis=1)
+    ce = labels[edges]
+    intra = ce[:, 0] == ce[:, 1]
+    inter = ce[~intra]
+    out = {"sizes": np.bincount(labels, minlength=nclusters),
+           "weights": cw, "centroids": cents,
+           "edges": np.zeros((0, 2), dtype=np.int64), "volumes": np.zeros(0),
+           "intra_volume": float(ew[intra].sum())}
+    if len(inter):
+        key = inter[:, 0] * nclusters + inter[:, 1]
+        uniq, inv = np.unique(key, return_inverse=True)
+        out["edges"] = np.stack([uniq // nclusters, uniq % nclusters],
+                                axis=1)
+        out["volumes"] = np.bincount(inv, weights=ew[~intra],
+                                     minlength=len(uniq))
+    return out
+
+
+def contract_inputs(case: str, rng):
+    """(labels, edges, volumes, coords, task weights, nclusters) of a
+    contract case: ``node`` the node cell's shape, a (64, 64, 32) stencil
+    of 131,072 tasks and 770,048 unit messages in 4,096 boxes of 4 x 4 x
+    2 tasks; ``level2`` a depth-3 hierarchy's second contraction, the
+    node case's 4,096 boxes in 512 groups of 8 with the boxes' summed
+    volumes; the rest small, with lognormal volumes (so that the order of
+    the sums shows): lognormal task weights, one cluster, a cluster a
+    task, repeated edges and self-loops in a shuffled edge list, 1 and 5
+    coordinates."""
+    import numpy as np
+    from repro_torch.core.taskgraph import stencil_graph
+    if case in ("node", "level2"):
+        g = stencil_graph((64, 64, 32))
+        tc = np.asarray(g.coords, np.float64)
+        labels = ((tc[:, 0] // 4) * 256 + (tc[:, 1] // 4) * 16
+                  + tc[:, 2] // 2).astype(np.int64)
+        ew = np.asarray(g.weights, np.float64)
+        if case == "node":
+            return labels, g.edges, ew, tc, None, 4096
+        c = numpy_contraction(labels, g.edges, ew, tc, None, 4096)
+        return (np.arange(4096) // 8, c["edges"], c["volumes"],
+                c["centroids"], c["weights"], 512)
+    dims = {"d1": (700,), "d5": (4, 4, 4, 2, 4)}.get(case, (16, 8, 8))
+    g = stencil_graph(dims)
+    tc = np.asarray(g.coords, np.float64)
+    n = len(tc)
+    edges = g.edges
+    if case == "duplicates":
+        edges = np.concatenate([edges, edges[rng.integers(0, len(edges),
+                                                          300)],
+                                np.repeat(rng.integers(0, n, 40), 2)
+                                .reshape(-1, 2)])
+        edges = edges[rng.permutation(len(edges))]
+    ew = rng.lognormal(size=len(edges))
+    w = rng.lognormal(size=n) if case in ("weighted", "d5") else None
+    nclusters = {"one-cluster": 1, "n-clusters": n}.get(case, 64)
+    labels = rng.integers(0, nclusters, n)
+    if case == "n-clusters":
+        labels = rng.permutation(n)
+    elif nclusters > 8:
+        labels[labels == 7] = 8  # an empty cluster: centroid 0 / 1
+    return labels, np.ascontiguousarray(edges), ew, tc, w, nclusters
+
+
+CONTRACT_CASES = ("node", "level2", "weighted", "one-cluster", "n-clusters",
+                  "duplicates", "d1", "d5")
+
+
+def contract_cases() -> list:
+    """The contract kernels against their plain version on CPU tensors
+    and against numpy's body, bit for bit, on every case of
+    :func:`contract_inputs` (seed 32), a rerun bit for bit, one wrapper
+    launch a call; an endpoint or a label out of range raising
+    ``ValueError`` with the card left usable; at the node cell's shape
+    the wrapper and its two sorts by CUDA events, the plain version and
+    numpy's body by the host clock, and the whole device contraction of
+    ``aggregate_tasks`` (uploads, launches, the copy back and the intra
+    sum) by the host clock, beside the byte bound; and ``aggregate_tasks``
+    on the card, with its own labels, against numpy's body."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.contract import ops, ref
+    out = []
+    for case in CONTRACT_CASES:
+        rng = np.random.default_rng(32)
+        labels, edges, ew, tc, w, nc = contract_inputs(case, rng)
+        host = [torch.from_numpy(np.ascontiguousarray(a))
+                for a in (labels, edges, ew, tc)]
+        host.append(None if w is None else torch.from_numpy(w))
+        args = [None if a is None else a.cuda() for a in host]
+        n0 = ops.launch_count
+        got = ops.contract(*args, nclusters=nc).cpu()
+        again = ops.contract(*args, nclusters=nc).cpu()
+        check(ops.launch_count == n0 + 2, f"contract/{case}: not one "
+              f"launch a call ({ops.launch_count - n0} for 2)")
+        check(torch.equal(got.packed, again.packed),
+              f"contract/{case}: a rerun differs")
+        plain = ref.contract_ref(*host, nclusters=nc)
+        check((got.npairs, got.nintra) == (plain.npairs, plain.nintra)
+              and torch.equal(got.packed, plain.packed),
+              f"contract/{case}: differs from the plain version")
+        want = numpy_contraction(labels, edges, ew, tc, w, nc)
+        for key in ("sizes", "weights", "centroids", "edges", "volumes"):
+            a = getattr(got, key).numpy()
+            check(a.dtype == want[key].dtype and a.shape == want[key].shape
+                  and np.array_equal(a, want[key]),
+                  f"contract/{case}: {key} differs from numpy's")
+        intra = float(got.intra.numpy().sum())
+        check(intra == want["intra_volume"],
+              f"contract/{case}: intra volume {intra!r} vs numpy's "
+              f"{want['intra_volume']!r}")
+        n, d = tc.shape
+        rec = {"case": case, "n": int(n), "d": int(d), "edges": len(edges),
+               "clusters": int(nc), "pairs": got.npairs,
+               "intra_edges": got.nintra, "weighted": w is not None}
+        if case == "node":
+            from repro_torch.core.taskgraph import TaskGraph
+            from repro_torch.hier import aggregate_tasks
+
+            def host_ms(fn, reps):
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return statistics.median(times)
+
+            def device_contraction():
+                # aggregate_tasks' span: uploads, launches, copy back, sum
+                up = [torch.from_numpy(a).cuda() for a in (labels, edges,
+                                                           ew, tc)]
+                c = ops.contract(*up, nclusters=nc).cpu()
+                return float(c.intra.numpy().sum())
+
+            def uploads():
+                for a in (labels, edges, ew, tc):
+                    torch.from_numpy(a).cuda()
+                torch.cuda.synchronize()
+
+            key = ref.pair_keys(args[0], args[1], nc)
+            nbytes = len(edges) * 24 + n * (8 * d + 8)
+            rec.update(
+                ms=cuda_ms(lambda: ops.contract(*args, nclusters=nc), 20),
+                sort_ms=cuda_ms(lambda: (torch.sort(key, stable=True),
+                                         torch.sort(args[0], stable=True)),
+                                20),
+                plain_ms=host_ms(lambda: ref.contract_ref(
+                    *host, nclusters=nc), 5),
+                numpy_ms=host_ms(lambda: numpy_contraction(
+                    labels, edges, ew, tc, w, nc), 5),
+                device_contraction_ms=host_ms(device_contraction, 20),
+                upload_ms=host_ms(uploads, 20),
+                bytes=nbytes, bound_ms=nbytes / 3.35e12 * 1e3,
+                bound_by="bytes")
+            # aggregate_tasks on the card, its own labels: numpy's arrays
+            whole = aggregate_tasks(TaskGraph(tc, edges, ew), nc,
+                                    device="cuda")
+            want = numpy_contraction(whole.labels, edges, ew, tc, None, nc)
+            for key, got_a in (("sizes", whole.sizes),
+                               ("weights", whole.weights),
+                               ("centroids", whole.coarse.coords),
+                               ("edges", whole.coarse.edges),
+                               ("volumes", whole.coarse.weights)):
+                check(np.array_equal(got_a, want[key]), "contract/node: "
+                      f"aggregate_tasks' {key} differ from numpy's")
+            check(whole.intra_volume == want["intra_volume"],
+                  "contract/node: aggregate_tasks' intra volume differs")
+        if case == "weighted":
+            for what, bad in (("endpoint", [args[0], args[1] - 1]),
+                              ("label", [args[0] + 1, args[1]])):
+                try:
+                    ops.contract(*bad, *args[2:], nclusters=nc)
+                    raised = ""
+                except ValueError as e:
+                    raised = str(e)
+                check(what in raised, f"contract/{case}: an {what} out of "
+                      f"range gave {raised or 'an answer'}")
+            check(torch.equal(ops.contract(*args, nclusters=nc).cpu().packed,
+                              got.packed),
+                  f"contract/{case}: differs after the refused calls")
+        out.append(rec)
+    return out
 
 
 def bound(machine, cs, edges, w, inv_bw, traffic, tag) -> dict:
@@ -3264,7 +3467,8 @@ def hier_spans(trace_id) -> dict:
     (``score.hopper`` spans) of the host passes under ``pipeline.refine``
     / ``pipeline.polish`` (the numpy scorer reads nothing back); and
     the K1 launches the pipeline's evaluator made (every ``score.hopper``
-    span); the ``path`` of every expansion (``hier.assign_cores``)."""
+    span); the ``path`` of every expansion (``hier.assign_cores``) and
+    of every contraction (``hier.contract``)."""
     from repro_torch import obs
     spans = obs.finished(trace_id)
     by_id = {s.span_id: s for s in spans}
@@ -3285,7 +3489,9 @@ def hier_spans(trace_id) -> dict:
             "host_reads": host_reads,
             "evaluator_k1": sum(1 for s in spans if s.name == "score.hopper"),
             "assign_paths": [s.attrs.get("path") for s in spans
-                             if s.name == "hier.assign_cores"]}
+                             if s.name == "hier.assign_cores"],
+            "contract_paths": [s.attrs.get("path") for s in spans
+                               if s.name == "hier.contract"]}
 
 
 def finish_levels(trace_id) -> list:
@@ -3411,6 +3617,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     import dataclasses
     import torch
     from repro_torch.core.signature import mapping_signature
+    from repro_torch.kernels.contract import ops as ct_ops
     from repro_torch.kernels.coredeal import ops as cd_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mapscore import ops
@@ -3431,10 +3638,12 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
     # the main path's only
     ops.launch_count = seg_ops.launch_count = mj_ops.launch_count = 0
     fa_ops.launch_count = ssd_ops.launch_count = cd_ops.launch_count = 0
+    ct_ops.launch_count = 0
     served = []
     for name, req in zip(HIER_SCENARIOS, reqs):
         k1, seg = ops.launch_count, seg_ops.launch_count
         mj, cd = mj_ops.launch_count, cd_ops.launch_count
+        ct = ct_ops.launch_count
         resp = svc.map(req)
         torch.cuda.synchronize()
         check(resp.status == "cold", f"{name}: first answer {resp.status}")
@@ -3454,6 +3663,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
                "segscan_launches": seg_ops.launch_count - seg,
                "mjfinish_launches": mj_ops.launch_count - mj,
                "coredeal_launches": cd_ops.launch_count - cd,
+               "contract_launches": ct_ops.launch_count - ct,
                "finish_from": finish_levels(res.stats["trace_id"]),
                **hier_answer(name, req, res), **res.stats["timings"],
                **hier_spans(res.stats["trace_id"])}
@@ -3494,11 +3704,19 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
               and set(paths) == {"cuda"},
               f"{name}: {rec['coredeal_launches']} coredeal launches, "
               f"expansion paths {paths}")
+        # contract: one launch a coarsening level, every one on the card
+        paths = rec["contract_paths"]
+        check(rec["contract_launches"] == len(paths)
+              == req.config.hierarchy.depth - 1
+              and set(paths) == {"cuda"},
+              f"{name}: {rec['contract_launches']} contract launches, "
+              f"contraction paths {paths}")
         served.append(rec)
     launches = ops.launch_count
     seg_launches = seg_ops.launch_count
     mj_launches = mj_ops.launch_count
     cd_launches = cd_ops.launch_count
+    ct_launches = ct_ops.launch_count
     check(fa_ops.launch_count == ssd_ops.launch_count == 0,
           "the hierarchical path launched a model kernel")
     split = coarsen_split(reqs[0])
@@ -3543,6 +3761,7 @@ def hier_phase(serve, problems, scale, rotations) -> dict:
             "segscan_launches": seg_launches,
             "mjfinish_launches": mj_launches,
             "coredeal_launches": cd_launches, "coredeal": coredeal,
+            "contract_launches": ct_launches,
             "refine_traps": traps,
             "k1_split": k1_split, "k1_proposals": k1_proposals,
             "node_split": split}
@@ -3948,10 +4167,14 @@ def mapping_phases(scale, rotations, profile) -> dict:
     check(any(r["workspace_bytes_per_candidate"] > 232448 for r in full),
           "no full-size machine exceeds one block's shared memory")
     range_errors = range_error_cases()
+    contract = contract_cases()
     emit("kernels", rtol=RTOL, atol=ATOL, small=small, full=full,
          range_errors=range_errors, design=ms_kernel.DESIGN,
+         contract=contract,
          timing="median of 20 kernel / 5 plain launches, CUDA events; "
-                "kernel calls under set_sync_debug_mode('error')")
+                "kernel calls under set_sync_debug_mode('error'); "
+                "contract: median of 20 launches by CUDA events, its plain "
+                "version and numpy's body median of 5 by the host clock")
 
     # -- phase 3: the device partitioner vs the host engine ---------------
     weighted = full_size_problem(SCENARIOS[0], scale, rotations,
@@ -3985,7 +4208,7 @@ def mapping_phases(scale, rotations, profile) -> dict:
                       rotations)
     return {"small": small, "full": full, "partition": part,
             "serve": serve, "hier": hier, "resilience": res,
-            "meshmap": mesh}
+            "meshmap": mesh, "contract": contract}
 
 
 # ---------------------------------------------------------------------------
@@ -4017,6 +4240,7 @@ def main(argv=None) -> int:
               "runs on a GPU", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.contract import kernel as ct_kernel
     from repro_torch.kernels.coredeal import kernel as cd_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mapscore import kernel as ms_kernel
@@ -4032,6 +4256,7 @@ def main(argv=None) -> int:
     seg_kernel._launch_fn()
     mj_kernel._launch_fn()
     cd_kernel._launch_fns()
+    ct_kernel._launch_fns()
     info = _build.build_info()
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -4109,6 +4334,7 @@ def main(argv=None) -> int:
     mjf = mapping["partition"]["mjfinish"]
     mj_lead = mjf[0]   # minighost's task side: the cold cells' shape
     cd_lead = mapping["hier"]["coredeal"][0]  # the node cell's shape
+    ct_lead = mapping["contract"][0]  # the node cell's shape
     kernels = [{
         "name": "mapscore", "route": "cuda", "design": ms_kernel.DESIGN,
         "source": "src/repro_torch/kernels/mapscore/csrc/mapscore.cu",
@@ -4214,6 +4440,23 @@ def main(argv=None) -> int:
         "library_ms": None, "sort_ms": cd_lead["sort_ms"],
         "shape": {k: cd_lead[k] for k in ("case", "n", "d", "clusters",
                                           "routers", "cores")},
+        "tolerance": "exact",
+    }, {
+        "name": "contract", "route": "cuda", "design": ct_kernel.DESIGN,
+        "source": "src/repro_torch/kernels/contract/csrc/contract.cu",
+        "replaces": "src/repro/hier/aggregate.py:aggregate_tasks",
+        "note": "no Pallas counterpart: the host np.bincount / np.unique "
+                "contraction of the hierarchy's coarsening",
+        "launches": mapping["hier"]["contract_launches"],
+        "launches_by_path": {"hier": mapping["hier"]["contract_launches"]},
+        "max_abs_err": 0,
+        "ms": ct_lead["ms"], "plain_ms": ct_lead["plain_ms"],
+        "bound_ms": ct_lead["bound_ms"], "bound_by": ct_lead["bound_by"],
+        "library_ms": None, "sort_ms": ct_lead["sort_ms"],
+        "numpy_ms": ct_lead["numpy_ms"],
+        "device_contraction_ms": ct_lead["device_contraction_ms"],
+        "shape": {k: ct_lead[k] for k in ("case", "n", "d", "edges",
+                                          "clusters", "pairs")},
         "tolerance": "exact",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,11 +10,15 @@ device partitioner of :mod:`repro_torch.core.partition_torch` by
 default), and the communication structure is contracted onto the
 clusters.
 
-The contractions stay on the host, as ``np.bincount`` / ``np.unique``
-segment sums: the weighted centroids are float64 sums that feed the top
-sweep's partitioner, whose cuts move with their last bit, and a device
-``index_add_`` adds in an order that changes from run to run.  Only the
-cluster labels come from the device.
+The contraction runs on the caller's device
+(:mod:`repro_torch.kernels.contract`: hand-written kernels on a CUDA
+device, their plain-torch version on the CPU) and keeps numpy's bits:
+the weighted centroids are float64 sums that feed the top sweep's
+partitioner, whose cuts move with their last bit.  So every sum adds in
+the order ``np.bincount`` does — a cluster's tasks and a pair's edges in
+index order, one thread a run after stable sorts, never by atomics,
+whose order changes from run to run — and the intra volume is summed by
+numpy itself over the intra edges' volumes in edge order.
 """
 
 from __future__ import annotations
@@ -22,10 +26,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch import obs
 from repro_torch.core.orderings import order_points
 from repro_torch.core.taskgraph import TaskGraph
+from repro_torch.device import resolve_device
+from repro_torch.kernels.contract import contract
 
 
 @dataclasses.dataclass
@@ -80,57 +87,49 @@ def aggregate_tasks(
     when ``nclusters = n / cores_per_node``.
 
     Centroids, cluster weights and the contracted edge list are segment
-    sums (``np.bincount``) keyed by the labels; parallel inter-cluster
-    edges collapse to one edge with summed volume, intra-cluster edges
-    are dropped from the coarse graph and accounted in ``intra_volume``.
+    sums keyed by the labels, as ``np.bincount`` / ``np.unique`` compute
+    them, bit for bit: parallel inter-cluster edges collapse to one edge
+    with summed volume, intra-cluster edges are dropped from the coarse
+    graph and accounted in ``intra_volume``.  The labels, edges, volumes,
+    coordinates and weights are uploaded to ``device`` and contracted
+    there (:func:`repro_torch.kernels.contract.contract`: the kernels on a
+    CUDA device, their plain version on ``"cpu"``), and the packed result
+    copied back once, inside a ``hier.contract`` span whose ``path`` is
+    the device's type.  Nothing is kept from one call to the next.
     """
     tc = np.asarray(task_coords if task_coords is not None
                     else graph.coords, dtype=np.float64)
-    n, d = tc.shape
+    n = len(tc)
     nclusters = int(nclusters)
     if not 1 <= nclusters <= n:
         raise ValueError(f"nclusters={nclusters} outside [1, {n}]")
     w = None if task_weights is None else \
         np.asarray(task_weights, dtype=np.float64)
+    dev = resolve_device(device)
 
     labels = order_points(tc, nclusters, sfc, weights=w,
                           longest_dim=longest_dim,
                           uneven_prime=uneven_prime, backend=backend,
                           device=device)
 
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
     with obs.span("hier.contract", edges=len(graph.edges),
-                  clusters=nclusters):
-        sizes = np.bincount(labels, minlength=nclusters)
-        wv = np.ones(n) if w is None else w
-        cw = np.bincount(labels, weights=wv, minlength=nclusters)
-        # weighted centroids: one segment sum per coordinate column
-        denom = np.where(cw > 0, cw, 1.0)
-        cents = np.stack([
-            np.bincount(labels, weights=tc[:, j] * wv, minlength=nclusters)
-            / denom for j in range(d)], axis=1)
+                  clusters=nclusters, path=dev.type):
+        c = contract(up(labels, np.int64), up(graph.edges, np.int64),
+                     up(graph.weights, np.float64), up(tc, np.float64),
+                     None if w is None else up(w, np.float64),
+                     nclusters=nclusters).cpu()
+        # numpy's own pairwise sum over the intra volumes in edge order
+        intra_volume = float(c.intra.numpy().sum())
 
-        # contract the edge list: label endpoints, split intra/inter, then
-        # sum parallel inter-cluster volumes with one flat bincount over the
-        # pair key
-        ce = labels[graph.edges]
-        ew = np.asarray(graph.weights, dtype=np.float64)
-        intra = ce[:, 0] == ce[:, 1]
-        intra_volume = float(ew[intra].sum())
-        inter = ce[~intra]
-        if len(inter):
-            key = inter[:, 0] * nclusters + inter[:, 1]
-            uniq, inv = np.unique(key, return_inverse=True)
-            vol = np.bincount(inv, weights=ew[~intra], minlength=len(uniq))
-            coarse_edges = np.stack([uniq // nclusters, uniq % nclusters],
-                                    axis=1)
-        else:
-            coarse_edges = np.zeros((0, 2), dtype=np.int64)
-            vol = np.zeros(0)
-
-    coarse = TaskGraph(cents, coarse_edges, vol,
+    coarse = TaskGraph(c.centroids.numpy(), c.edges.numpy(),
+                       c.volumes.numpy(),
                        meta={"kind": "aggregated",
                              "fine_n": n,
                              "fine_edges": len(graph.edges),
                              "intra_volume": intra_volume,
                              "parent_meta": dict(graph.meta)})
-    return Aggregation(coarse, labels, sizes, cw, intra_volume)
+    return Aggregation(coarse, labels, c.sizes.numpy(), c.weights.numpy(),
+                       intra_volume)

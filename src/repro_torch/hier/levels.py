@@ -7,7 +7,7 @@ structure of Schulz & Woydt's shared-memory hierarchical process
 mapping):
 
 1. **coarsen, level by level** — the task graph is contracted bottom-up
-   with :func:`repro_torch.hier.aggregate.aggregate_tasks` (one bincount
+   with :func:`repro_torch.hier.aggregate.aggregate_tasks` (one
    contraction per level; level 1 groups tasks into node-sized
    clusters, level j groups level j-1 clusters by the level's arity).
    The machine side mirrors it: level 1 units are the allocation's
@@ -31,9 +31,10 @@ mapping):
    on cores.
 
 The coarsening labels come from the pipeline's partition engine (the
-device partitioner by default) and the contractions stay on the host
-(:mod:`repro_torch.hier.aggregate`); every expansion runs on the
-pipeline's ``device`` (the ``coredeal`` kernels on a card); the
+device partitioner by default); every contraction
+(:mod:`repro_torch.hier.aggregate`: the ``contract`` kernels on a card)
+and every expansion (the ``coredeal`` kernels) runs on the pipeline's
+``device``; the
 refinement passes score with the pipeline's ``score_backend`` on its
 ``device`` (the mapscore kernel by default) except for sum-separable
 objectives, which the numpy evaluator scores exactly.  Every decision

@@ -48,6 +48,7 @@ from repro.core import (bgq, block_allocation, gemini_xk7, sfc_allocation,
 from repro.mapping.pipeline import MappingPipeline as RPipeline
 from repro.mapping.pipeline import PipelineConfig as RConfig
 from repro_torch import compat, hier, obs
+from repro_torch.kernels import contract as CT
 from repro_torch.kernels.coredeal import coredeal
 from repro_torch.mapping import MappingPipeline
 from repro_torch.mapping.fused import FusedSweep, _Refinement
@@ -243,6 +244,166 @@ def test_coredeal_wrapper_checks():
         call(core_router=args["core_router"][:0])
     empty = call(labels=args["labels"][:0], coords=args["coords"][:0])
     assert empty.shape == (0,) and empty.dtype == torch.int64
+
+
+CONTRACT_CASES = ("int-volumes", "weighted-lognormal", "one-cluster",
+                  "n-clusters", "duplicates-self-loops", "d1", "d5",
+                  "endpoint-out-of-range", "label-out-of-range")
+
+
+def _contract_case(case):
+    """(reference graph, nclusters, task weights) of a contraction case:
+    integer or lognormal volumes (``intra_volume`` then depends on the
+    order numpy sums in), unit or lognormal task weights, one cluster (no
+    inter edge left), one cluster a task, repeated edges and self-loops
+    in a shuffled edge list, 1 and 5 coordinates, and an endpoint or a
+    label out of range."""
+    rng = np.random.default_rng(CONTRACT_CASES.index(case))
+    dims = {"d1": (512,), "d5": (4, 4, 4, 2, 4)}.get(case, (16, 8, 8))
+    g = stencil_graph(dims)
+    lognormal = case not in ("int-volumes", "one-cluster")
+    g.weights = (rng.lognormal(size=len(g.edges)) if lognormal
+                 else rng.integers(1, 9, len(g.edges)) * 1.0)
+    if case == "duplicates-self-loops":
+        extra = np.concatenate([g.edges[rng.integers(0, len(g.edges), 300)],
+                                np.repeat(rng.integers(0, g.n, 40), 2)
+                                .reshape(-1, 2)])
+        g.edges = np.concatenate([g.edges, extra])
+        perm = rng.permutation(len(g.edges))
+        g.edges = g.edges[perm]
+        g.weights = np.concatenate([g.weights, rng.lognormal(
+            size=len(extra))])[perm]
+    if case == "endpoint-out-of-range":
+        g.edges = g.edges.copy()
+        g.edges[17, 1] = g.n
+    w = (rng.lognormal(size=g.n) if case in ("weighted-lognormal", "d5")
+         else None)
+    nclusters = {"one-cluster": 1, "n-clusters": g.n}.get(case, 64)
+    return g, nclusters, w
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_contract_matches_reference(case, device):
+    """``aggregate_tasks``' contraction on ``device`` (the contract
+    kernels on ``"cuda"``, their plain version on ``"cpu"``) against the
+    reference's numpy body, bit for bit, ``intra_volume`` by ``==``; the
+    kernels against the plain version on the same inputs; an endpoint or
+    a label out of range raises ``ValueError``."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("the contract kernels need a CUDA device")
+    g, nclusters, w = _contract_case(case)
+    pg = compat.taskgraph(g)
+    if case == "endpoint-out-of-range":
+        with pytest.raises(ValueError, match="endpoint"):
+            hier.aggregate_tasks(pg, nclusters, task_weights=w,
+                                 backend="vectorized", device=device)
+        return
+    want = RH.aggregate_tasks(g, nclusters, task_weights=w)
+    if case == "label-out-of-range":
+        labels = torch.from_numpy(want.labels.copy())
+        labels[5] = nclusters
+        args = [t.to(device) for t in (
+            labels, torch.from_numpy(g.edges), torch.from_numpy(g.weights),
+            torch.from_numpy(np.asarray(g.coords, np.float64)))]
+        with pytest.raises(ValueError, match="label"):
+            CT.contract(*args, nclusters=nclusters)
+        return
+    launches = CT.ops.launch_count
+    obs.reset()
+    got = hier.aggregate_tasks(pg, nclusters, task_weights=w,
+                               backend="vectorized", device=device)
+    assert CT.ops.launch_count == launches + (device == "cuda")
+    span, = [s for s in obs.finished() if s.name == "hier.contract"]
+    assert span.attrs["path"] == device
+    assert np.array_equal(got.labels, want.labels)
+    for key in ("sizes", "weights"):
+        assert getattr(got, key).dtype == getattr(want, key).dtype, key
+        assert np.array_equal(getattr(got, key), getattr(want, key)), key
+    for key in ("coords", "edges", "weights"):
+        a, b = getattr(got.coarse, key), getattr(want.coarse, key)
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        assert np.array_equal(a, b, equal_nan=True), key
+    assert got.intra_volume == want.intra_volume
+    assert got.coarse.meta["intra_volume"] == want.intra_volume
+    if case == "one-cluster":
+        assert got.coarse.edges.shape == (0, 2)
+    if case == "n-clusters":
+        # a task a cluster: the stencil's edges, none intra
+        assert np.array_equal(got.sizes, np.ones(g.n, dtype=np.int64))
+        assert got.intra_volume == 0.0
+        assert len(got.coarse.edges) == len(g.edges)
+
+    # the kernels and the plain version on the same inputs
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        want.labels, g.edges, g.weights, np.asarray(g.coords, np.float64))]
+    tw = None if w is None else torch.from_numpy(w)
+    plain = CT.contract_ref(*host, tw, nclusters=nclusters)
+    dev = [t.to(device) for t in host]
+    kern = CT.contract(*dev, None if tw is None else tw.to(device),
+                       nclusters=nclusters).cpu()
+    assert (kern.npairs, kern.nintra) == (plain.npairs, plain.nintra)
+    assert torch.equal(kern.packed, plain.packed)
+    assert np.array_equal(plain.intra.numpy(),
+                          g.weights[want.labels[g.edges[:, 0]]
+                                    == want.labels[g.edges[:, 1]]])
+
+
+def test_contract_wrapper_checks():
+    g, nclusters, w = _contract_case("weighted-lognormal")
+    labels = RH.aggregate_tasks(g, nclusters).labels
+    args = dict(labels=torch.from_numpy(labels),
+                edges=torch.from_numpy(g.edges),
+                edge_weights=torch.from_numpy(g.weights),
+                coords=torch.from_numpy(np.asarray(g.coords, np.float64)),
+                task_weights=torch.from_numpy(w))
+
+    def call(nc=nclusters, **over):
+        return CT.contract(**{**args, **over}, nclusters=nc)
+
+    c = call()
+    assert c.packed.dtype == torch.int64 and c.packed.dim() == 1
+    assert c.sizes.sum() == g.n and c.centroids.shape == (nclusters, 3)
+    assert c.edges.shape == (c.npairs, 2)
+    assert c.npairs + c.nintra <= len(g.edges)
+    with pytest.raises(TypeError, match="float64"):
+        call(coords=args["coords"].float())
+    with pytest.raises(TypeError, match="int64"):
+        call(labels=args["labels"].int())
+    with pytest.raises(TypeError, match="int64"):
+        call(edges=args["edges"].int())
+    with pytest.raises(TypeError, match="float64"):
+        call(task_weights=args["task_weights"].float())
+    with pytest.raises(ValueError, match="shape"):
+        call(labels=args["labels"][:-1])
+    with pytest.raises(ValueError, match="shape"):
+        call(edges=args["edges"][:, :1].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        call(edge_weights=args["edge_weights"][:-1])
+    with pytest.raises(ValueError, match="shape"):
+        call(task_weights=args["task_weights"][1:])
+    with pytest.raises(ValueError, match="at least one dimension"):
+        call(coords=torch.zeros((g.n, 0), dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        call(coords=args["coords"].T.contiguous().T)
+    with pytest.raises(ValueError, match="lies on"):
+        call(edges=args["edges"].to("meta"))
+    with pytest.raises(ValueError, match="nclusters"):
+        call(nc=0)
+    with pytest.raises(ValueError, match="endpoint"):
+        call(edges=args["edges"] - 1)
+    with pytest.raises(ValueError, match="label"):
+        call(nc=nclusters - 1)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        CT.contract_ref(*(t.to("meta") for t in args.values()),
+                        nclusters=nclusters)
+    # no edges: every output but the pairs, which are (0, 2)
+    empty = call(edges=args["edges"][:0], edge_weights=args["edge_weights"][:0])
+    assert empty.edges.shape == (0, 2) and empty.volumes.numel() == 0
+    assert empty.intra.numel() == 0
+    assert torch.equal(empty.centroids, c.centroids)
+    assert torch.equal(torch.cat([empty.sizes, empty.weights.view(
+        torch.int64)]), torch.cat([c.sizes, c.weights.view(torch.int64)]))
 
 
 # ---------------------------------------------------------------------------

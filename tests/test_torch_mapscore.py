@@ -289,6 +289,10 @@ def test_score_fault_sites_fire():
 def test_kernel_modules_import_without_toolchain():
     """Importing binds nothing: no nvcc, no GPU, no triton needed."""
     for name in ("repro_torch.kernels", "repro_torch.kernels._build",
+                 "repro_torch.kernels.contract",
+                 "repro_torch.kernels.contract.kernel",
+                 "repro_torch.kernels.contract.ops",
+                 "repro_torch.kernels.contract.ref",
                  "repro_torch.kernels.mapscore",
                  "repro_torch.kernels.mapscore.kernel",
                  "repro_torch.kernels.mapscore.ops",
@@ -316,8 +320,8 @@ def test_kernel_modules_import_without_toolchain():
         importlib.import_module(name)
     from repro_torch.kernels import _build
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["coredeal.cu", "flash_attention.cu", "mapscore.cu",
-                    "mjfinish.cu", "segscan.cu", "ssd.cu"]
+    assert srcs == ["contract.cu", "coredeal.cu", "flash_attention.cu",
+                    "mapscore.cu", "mjfinish.cu", "segscan.cu", "ssd.cu"]
     assert _build.build_info() == {} or "path" in _build.build_info()
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(_build.KernelBuildFailure, match="nvcc not found"):

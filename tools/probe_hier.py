@@ -5,9 +5,11 @@ Run from the repository root::
 
     python3 tools/probe_hier.py [--scale 262144] [--rotations 8] [--profile]
 
-Builds the two kernels the hierarchical path launches (mapscore, K1, and
-segscan), partitions the full-size minighost-xk7_sparse stack on the host
-for K1's whole-versus-halves check, then runs ``chip_smoke.hier_phase``
+Builds the kernel library, checks the contract kernels against their
+plain version and numpy's body (``chip_smoke.contract_cases``: the node
+cell's shape timed), partitions the full-size minighost-xk7_sparse stack
+on the host for K1's whole-versus-halves check, then runs
+``chip_smoke.hier_phase``
 (the refinement traps and K1 against its plain version on a proposal
 stack on the card, the four node / depth-3 requests cold with their
 oracles; no flat requests to set them beside) and, with ``--profile``,
@@ -49,6 +51,7 @@ def main(argv=None) -> int:
     cs.emit("device", nvidia_smi=cs.nvidia_smi_line(),
             kind=torch.cuda.get_device_name(0), torch=torch.__version__,
             build_seconds=_build.build_info()["seconds"])
+    cs.emit("contract", cases=cs.contract_cases())
     lead = cs.SCENARIOS[0].rsplit("-", 1)[0]
     problems = {lead: cs.full_size_problem(lead + "-latency", args.scale,
                                            args.rotations)}
